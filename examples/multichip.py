@@ -1,30 +1,24 @@
 #!/usr/bin/env python
-"""Example: every multi-chip mode of tpuflow on one mesh.
+"""Example: the multi-device modes of tpuflow on one mesh.
 
 Usage:
     python examples/multichip.py [n_devices]
 
-Runs on whatever devices exist — on a CPU-only machine, set
-    XLA_FLAGS=--xla_force_host_platform_device_count=8
-to get an 8-device virtual mesh (this is how the test suite and the
-driver dryrun validate the distributed paths; on a real TPU slice the
-same code runs unchanged and the Pallas kernels lower to Mosaic).
+Runs on whatever devices exist — four H100s, or on a CPU-only machine
+    XLA_FLAGS=--xla_force_host_platform_device_count=4 JAX_PLATFORMS=cpu
+for a virtual mesh (how the test suite validates the distributed paths).
 
 Shows, on a ('data', 'y') mesh:
 
   dp — THROUGHPUT scaling: a batch of B independent frame pairs, one per
        'data' shard, each solved by the FULL single-pair engine inside
-       shard_map (zero cross-shard collectives; on TPU every chip runs
-       the Pallas kernels at single-chip speed). This is the production
-       answer to "solve a video stream faster".
-  sp — LATENCY scaling for one pair too large for a chip: image rows
-       sharded over 'y' with explicit ring-halo exchange (one widened
-       ppermute per outer iteration), or — where its VMEM gate admits —
-       the in-kernel ring-RDMA Pallas relaxation (halo="kernel").
+       shard_map (zero cross-shard collectives).
+  sp — LATENCY scaling for one large pair: image rows sharded over 'y'
+       with explicit ring-halo exchange (one widened ppermute per outer
+       iteration).
 
-Also prints the analytic ICI projection (tpuflow.parallel.model) for
-the configured mesh, the estimate used in place of hardware this
-environment does not have.
+and the sharding router's projection (tpuflow.parallel.model) for the
+mesh's 'y' size.
 """
 
 import os
@@ -36,59 +30,45 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
 import jax  # noqa: E402
 
-from tpuflow import FlowConfig  # noqa: E402
-from tpuflow.io import read_raw_u8  # noqa: E402
+from tpuflow import FlowConfig, compute_flow  # noqa: E402
 from tpuflow.parallel import make_mesh  # noqa: E402
-from tpuflow.parallel.model import project_schedule, rub_default_levels  # noqa: E402
+from tpuflow.parallel.model import (  # noqa: E402
+    project_schedule_auto, schedule_levels,
+)
 from tpuflow.solver.bucketed import (  # noqa: E402
     compute_flow_bucketed_async,
     compute_flow_bucketed_batch,
     compute_flow_bucketed_sharded,
 )
 from tpuflow.solver.flow2d import endpoint_error  # noqa: E402
+from tpuflow.synthetic import seeded_batch, seeded_pair  # noqa: E402
 
 
 def main():
     n = int(sys.argv[1]) if len(sys.argv) > 1 else len(jax.devices())
     devices = jax.devices()[:n]
     print(f"{n} x {devices[0].platform} devices")
-    if devices[0].platform != "tpu":
-        # Scanned (non-unrolled) pipeline: far cheaper CPU compiles, same
-        # math (the test suite pins unroll parity).
-        os.environ.setdefault("TPUFLOW_UNROLL", "0")
-    if n >= 4 and n % 2 == 0:
-        mesh = make_mesh((2, n // 2), devices=devices)
-    else:
-        mesh = make_mesh((1, n), devices=devices)
+    mesh = make_mesh((1, n), devices=devices)
     print(f"mesh: {dict(mesh.shape)}")
 
-    data_dir = "/root/reference/data"
-    f0 = read_raw_u8(os.path.join(data_dir, "rub1.raw"), 584, 388)
-    f1 = read_raw_u8(os.path.join(data_dir, "rub2.raw"), 584, 388)
-    on_tpu = devices[0].platform == "tpu"
-    if not on_tpu:
-        # Virtual CPU mesh: crop + small schedule so the demo finishes in
-        # a few minutes — the dominant cost is the in-kernel ring-RDMA
-        # relaxation running in Pallas INTERPRET mode (every remote copy
-        # emulated; measured ~19x the dryrun's work at the previous
-        # 194x292/4-level/6-outer demo size, i.e. 30+ min). On a real
-        # TPU slice run the full frames/schedule.
-        f0, f1 = f0[:96, :144], f1[:96, :144]
+    if devices[0].platform == "gpu":
+        w, h, cfg = 1920, 1080, FlowConfig()
+    else:
+        # Virtual CPU mesh: small frames and schedule, same code paths.
+        w, h = 144, 96
         cfg = FlowConfig(warp_levels_count=3, outer_iterations_count=4,
                          inner_iterations_count=2)
-    else:
-        cfg = FlowConfig()
+    f0, f1, _, _ = seeded_pair(w, h, 0)
 
     u1, v1 = map(np.asarray, compute_flow_bucketed_async(f0, f1, cfg))
-    print(f"single-device reference solve: mean |f| "
-          f"{np.hypot(u1, v1).mean():.3f}")
+    print(f"single-device solve: mean |f| {np.hypot(u1, v1).mean():.3f}")
 
-    # dp: one pair per 'data' shard (here B = 2 * data-axis size).
-    b = 2 * mesh.shape["data"]
-    F0 = np.stack([f0] * b)
-    F1 = np.stack([f1] * b)
-    U, V = map(np.asarray, compute_flow_bucketed_batch(F0, F1, cfg, mesh=mesh))
-    print(f"dp batch of {b}: per-pair EPE vs single-device "
+    # dp: one pair per device.
+    F0, F1, _, _ = seeded_batch(n, w, h, seed=0)
+    dmesh = make_mesh((n, 1), devices=devices)
+    U, V = map(np.asarray, compute_flow_bucketed_batch(F0, F1, cfg,
+                                                       mesh=dmesh))
+    print(f"dp batch of {n}: pair-0 EPE vs single-device "
           f"{endpoint_error(U[0], V[0], u1, v1):.2e} px")
 
     # sp: rows of ONE pair over 'y', explicit ppermute halo.
@@ -97,29 +77,17 @@ def main():
     print(f"sp halo='explicit': EPE vs single-device "
           f"{endpoint_error(us, vs, u1, v1):.2e} px")
 
-    # sp with the in-kernel ring-RDMA Pallas relaxation (on CPU this runs
-    # in Pallas interpret mode, every remote copy emulated).
-    us, vs = map(np.asarray, compute_flow_bucketed_sharded(
-        f0, f1, cfg, mesh=mesh, halo="kernel"))
-    print(f"sp halo='kernel': EPE vs single-device "
-          f"{endpoint_error(us, vs, u1, v1):.2e} px")
-
-    # The FRONT DOOR: compute_flow routes all of the above by itself —
-    # a (B, H, W) stack goes dp, a large single pair goes cost-routed
-    # sp, a tiny one runs one-chip (tpuflow.solver.flow2d.plan_parallel).
-    from tpuflow import compute_flow
-
+    # The FRONT DOOR: a (B, H, W) stack goes dp, a large single pair goes
+    # cost-routed sp, a small one runs on one device
+    # (tpuflow.solver.flow2d.plan_parallel).
     res = compute_flow(F0, F1, cfg, mesh=mesh)
-    print(f"front door (batch -> dp): per-pair EPE vs single-device "
+    print(f"front door (batch -> dp): pair-0 EPE vs single-device "
           f"{endpoint_error(res.u[0], res.v[0], u1, v1):.2e} px")
 
-    # The analytic scaling projection for this mesh's 'y' size.
-    proj = project_schedule(rub_default_levels(), FlowConfig(),
-                            mesh.shape["y"], "kernel")
-    print(f"projected sp efficiency at rub size, n_y={mesh.shape['y']}, "
-          f"RDMA kernel: {proj['efficiency']:.0%} "
-          f"(rub is below the sp comm floor by design — dp is the "
-          f"throughput axis; see BASELINE.md)")
+    proj = project_schedule_auto(schedule_levels(w, h), FlowConfig(),
+                                 mesh.shape["y"])
+    print(f"router projection at {w}x{h}, n_y={mesh.shape['y']}: "
+          f"efficiency {proj['efficiency']:.0%}, levels {proj['levels']}")
 
 
 if __name__ == "__main__":

@@ -58,8 +58,9 @@ def test_settings_mode(tmp_path):
 
 
 def test_warp_report_flag(tmp_path, capsys):
-    """--warp-report prints per-level warp-branch telemetry alongside
-    the normal outputs (gentle motion -> all levels on the fast path)."""
+    """--warp-report prints per-level warp displacement telemetry
+    alongside the normal outputs (gentle motion -> every level within
+    +-D)."""
     inp = tmp_path / "in"
     out = tmp_path / "out"
     inp.mkdir()
@@ -69,7 +70,7 @@ def test_warp_report_flag(tmp_path, capsys):
 
     assert main([str(settings), "--warp-report"]) == 0
     text = capsys.readouterr().out
-    assert "warp-report: every level on the +-D fast path" in text
+    assert "warp-report: every level within +-D" in text
 
 
 def test_positional_mode_with_counter(tmp_path):

@@ -70,8 +70,43 @@ def test_load_settings_xml(tmp_path):
     assert io.press_key is True
 
 
-def test_reference_settings_xml_parses():
-    # The reference repo's own settings.xml must load unchanged.
-    flow, io = load_settings_xml("/root/reference/settings.xml")
+# The reference repository's settings.xml layout (reference: settings.xml:3-27):
+# comments, the full attribute set of each element (including the ones the
+# parser ignores) and attributes in the reference's order.
+REFERENCE_SETTINGS_XML = """<?xml version="1.0" encoding="UTF-8"?>
+<!-- Optical flow settings -->
+<OpticalFlow>
+    <Input>
+        <Path inputPath="./data/"/>
+        <Mode imageType="8-bit" Nx="128" Ny="128">
+            <!-- frame pair -->
+            <Files file1="rub1.raw" file2="rub2.raw"/>
+        </Mode>
+    </Input>
+    <Parameters>
+        <Method run="flow" mode="2d" key="0"/>
+        <Solver>
+            <Iterations outer="40" inner="5"/>
+            <Warping levels="20" scaling="0.9" medianRadius="5"/>
+            <Model alpha="35" e_smooth="0.001" e_data="0.001" sigma="1.5"/>
+        </Solver>
+    </Parameters>
+    <Output>
+        <Path outputPath="./data/output/"/>
+    </Output>
+</OpticalFlow>
+"""
+
+
+def test_reference_settings_xml_parses(tmp_path):
+    # A file laid out like the reference repo's own settings.xml must load
+    # unchanged.
+    p = tmp_path / "settings.xml"
+    p.write_text(REFERENCE_SETTINGS_XML)
+    flow, io = load_settings_xml(str(p))
     assert flow.warp_levels_count == 20
-    assert io.width == 128
+    assert flow.outer_iterations_count == 40
+    assert flow.equation_alpha == pytest.approx(35.0)
+    assert flow.gaussian_sigma == pytest.approx(1.5)
+    assert io.width == 128 and io.height == 128
+    assert io.press_key is False

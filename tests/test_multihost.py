@@ -9,7 +9,8 @@ Spawns 2 OS processes, each exposing 4 virtual CPU devices, joined via
     index and both processes' outputs land in one shared manifest.
 
 This is the standard JAX multi-host test harness (multi-process CPU with
-a localhost coordinator) — the same code paths a TPU pod runs, minus ICI.
+a localhost coordinator) — the same code paths a multi-host GPU run
+takes, with the processes on one machine.
 """
 
 import os

@@ -1,8 +1,8 @@
 """Oracle emulation of the reference grad/log CUDA-block halo artifacts.
 
 These tests pin the EMULATION's structure (where the artifact can and
-cannot change values); the magnitude on the real workload is measured by
-tools/measure_block_artifact.py and recorded in BASELINE.md.
+cannot change values); the magnitude on a real workload is measured by
+tools/measure_block_artifact.py.
 """
 
 import numpy as np

@@ -77,7 +77,7 @@ def test_pipeline_zero_motion_gives_zero_flow():
 
 
 def test_single_level_horn_schunck_config():
-    # BASELINE configs[0]: single level, grey constancy, no pyramid.
+    # Horn-Schunck: single level, grey constancy, no pyramid.
     f0 = gaussian_blob(16, 16, 8.0, 8.0)
     f1 = gaussian_blob(16, 16, 8.0, 9.0)
     cfg = FlowConfig(
@@ -119,32 +119,3 @@ def test_bucketed_group_traces():
             48, 40, cfg.warp_levels_count, cfg.warp_scale_factor
         )
     )
-
-
-def test_whole_level_pipeline_wiring_interpret(monkeypatch):
-    # Drive the PRODUCTION unrolled trimmed-carry pipeline with the
-    # whole-level kernel engaged (interpret mode) on CPU and pin it
-    # against the default XLA path: validates the carry chain across
-    # levels, the finest-identity detection, and the eligible/ineligible
-    # boundary conversions exactly as they run on TPU.
-    import numpy as np
-
-    from tpuflow.config import FlowConfig
-    from tpuflow.solver.bucketed import compiled_full_pipeline
-    from tpuflow.solver.flow2d import endpoint_error
-
-    h, w = 52, 60
-    ys, xs = np.mgrid[0:h, 0:w].astype(np.float32)
-    f0 = 200.0 * np.exp(-((ys - 26) ** 2 + (xs - 30) ** 2) / 50.0)
-    f1 = 200.0 * np.exp(-((ys - 25.2) ** 2 + (xs - 31.1) ** 2) / 50.0)
-    cfg = FlowConfig(
-        warp_levels_count=4, warp_scale_factor=0.6, outer_iterations_count=4,
-        inner_iterations_count=3, median_radius=5, gaussian_sigma=1.0,
-    )
-    want_u, want_v = compiled_full_pipeline((h, w), cfg, unroll=True)(f0, f1)
-    monkeypatch.setenv("TPUFLOW_WHOLE_LEVEL", "interpret")
-    got_u, got_v = compiled_full_pipeline((h, w), cfg, unroll=True)(f0, f1)
-    epe = endpoint_error(np.asarray(got_u), np.asarray(got_v),
-                         np.asarray(want_u), np.asarray(want_v))
-    assert epe < 1e-3, epe
-    assert np.isfinite(np.asarray(got_u)).all()

@@ -3,7 +3,7 @@
 The reference guards the data penalizer with e_data^2 and the diffusivity
 with e_smooth^2 (no division can hit exactly zero), and the warp copies
 frame_0 wherever targets go NaN/out-of-range. These tests pin that the
-TPU engines inherit the same robustness: finite outputs everywhere, zero
+engines inherit the same robustness: finite outputs everywhere, zero
 flow for constant scenes, no poisoning from extreme dynamic range.
 """
 

@@ -1,205 +1,127 @@
-"""Analytic sp-scaling projection (parallel/model) — structure checks:
-the model must walk the REAL applicability gates and price the two
-paths' documented message counts."""
+"""Cost model of spatial sharding (parallel/model) — structure checks: the
+model walks the real applicability gate of the explicit halo path, prices
+its documented message counts, and routes with no kernel path."""
 
 import pytest
 
 from tpuflow.config import FlowConfig
 from tpuflow.parallel.model import (
-    ICIParams,
+    LinkParams,
+    estimate_level_t1,
+    fit_level_time,
+    fit_link,
     level_comm_cost,
     level_sharded_time,
-    project_schedule,
-    rub_default_levels,
+    plan_level,
+    project_schedule_auto,
+    schedule_levels,
 )
 
 
 def test_rub_breakdown_matches_schedule():
-    levels = rub_default_levels()
-    assert len(levels) == 47  # the real rub default schedule depth
-    total_ms = sum(t for _, _, t in levels) * 1e3
-    # fine 7 ms + 37 coarse levels x 42 us ~ 8.6-9.0 ms (the measured pair)
-    assert 8.0 < total_ms < 9.5
-
-
-def test_kernel_comm_cheaper_than_explicit():
-    """The RDMA path must price below the ppermute path at equal config:
-    same once-per-level volume class, but no XLA dispatch per message."""
-    cfg = FlowConfig()
-    ici = ICIParams()
-    for wb in (128, 640, 2048):
-        assert level_comm_cost(448, wb, cfg, 4, "kernel", ici) < (
-            level_comm_cost(448, wb, cfg, 4, "explicit", ici))
+    levels = schedule_levels(584, 388)
+    assert len(levels) == 47  # the default schedule depth at 584x388
+    assert all(t > 0 for _, _, t in levels)
+    # Coarse-to-fine: the finest bucket is the largest and the slowest.
+    assert levels[-1][2] == max(t for _, _, t in levels)
 
 
 def test_gates_respected():
     cfg = FlowConfig()
-    ici = ICIParams()
-    # 8 rows/shard: replicated, full single-chip cost, no comm.
-    t, path = level_sharded_time(1e-3, 64, 128, cfg, 8, "explicit", ici)
+    link = LinkParams()
+    # 8 rows/shard: replicated, full single-card cost, no comm.
+    t, path = level_sharded_time(1e-3, 64, 128, cfg, 8, link)
     assert path == "replicated" and t == 1e-3
-    # 4K bucket: kernel VMEM gate fails -> explicit.
-    _, path = level_sharded_time(1e-3, 2176, 3968, cfg, 4, "kernel", ici)
+    # 1080p bucket over 4 cards: 272 rows/shard clear the 6-row halo.
+    _, path = level_sharded_time(1e-3, 1088, 2048, cfg, 4, link)
     assert path == "explicit"
-    # rub fine bucket over 4: kernel admitted.
-    _, path = level_sharded_time(1e-3, 448, 640, cfg, 4, "kernel", ici)
-    assert path == "kernel"
 
 
 def test_large_frames_scale_better():
-    """The documented conclusion: rub-size frames are below the sp
-    comm floor; 1080p-class frames with the kernel path clear it."""
+    """Bigger frames carry more compute per exchanged halo row, so their
+    projected sharding efficiency is higher."""
     cfg = FlowConfig()
-    rub = project_schedule(rub_default_levels(), cfg, 2, "kernel")
-    big = project_schedule(
-        rub_default_levels(fine_ms_total=120.0, w=1920, h=1080), cfg, 2,
-        "kernel")
-    assert big["efficiency"] > rub["efficiency"]
-    assert big["efficiency"] >= 0.8  # the BASELINE target, projected
+    rub = project_schedule_auto(schedule_levels(584, 388), cfg, 4)
+    big = project_schedule_auto(schedule_levels(3840, 2160), cfg, 4)
+    assert big["efficiency"] >= rub["efficiency"]
 
 
 def test_k_outer_cuts_comm():
-    """k-outer fusion divides the per-level exchange count: comm cost
-    must fall monotonically in k for both paths (same once-per-level
-    constant volume, ceil(outer/k) iterate exchanges of a k-widened
-    halo — bandwidth up, message count and dispatch down)."""
+    """k-outer fusion divides the per-level exchange count: comm cost falls
+    monotonically in k (ceil(outer/k) exchanges of a k-widened halo)."""
     cfg = FlowConfig()
-    ici = ICIParams()
-    for path in ("explicit", "kernel"):
-        costs = [level_comm_cost(448, 640, cfg, 4, path, ici, k)
-                 for k in (1, 2, 5, 10)]
-        assert costs == sorted(costs, reverse=True), (path, costs)
-        # k=10 must at least halve k=1 (the kernel path's fixed
-        # once-per-level constant volume GROWS with the halo width, so
-        # its floor is higher than the explicit path's).
-        assert costs[-1] < 0.45 * costs[0], (path, costs)
+    link = LinkParams()
+    costs = [level_comm_cost(448, 640, cfg, 4, link, k) for k in (1, 2, 5, 10)]
+    assert costs == sorted(costs, reverse=True), costs
 
 
-def test_plan_level_router():
-    """The halo='auto' router: mid-pyramid levels whose exchange cost
-    exceeds the sharding gain must resolve to replicated; the finest
-    1080p-class buckets must shard."""
-    from tpuflow.parallel.model import plan_level
-
+@pytest.mark.parametrize("bucket", [(64, 128), (448, 640), (1088, 2048),
+                                    (2176, 3840)])
+def test_plan_level_router(bucket):
+    """The halo="auto" router only knows replicate and the explicit path;
+    a level it shards is priced strictly below its replicated cost."""
     cfg = FlowConfig()
-    # Coarse bucket: replicate (gate + cost both say so).
-    path, _, _ = plan_level(64, 128, cfg, 4)
-    assert path == "replicated"
-    # 1080p fine bucket: shard.
-    path, k, _ = plan_level(1088, 2048, cfg, 4)
-    assert path in ("kernel", "explicit") and k >= 1
+    hb, wb = bucket
+    path, k, t = plan_level(hb, wb, cfg, 4)
+    assert path in ("replicated", "explicit")
+    t1 = estimate_level_t1(hb, wb, cfg)
+    if path == "explicit":
+        assert t < t1 and k >= 1
+    else:
+        assert t == t1
 
 
-def test_auto_projection_clears_target_at_n4():
-    """The round-4 headline: cost-based per-level routing (+ k-outer
-    fusion) lifts the projected 1080p n=4 efficiency over the >=80%
-    BASELINE target (round 3's gate-only routing projected 72%)."""
-    from tpuflow.parallel.model import project_schedule_auto
-
+def test_plan_level_follows_compute_time():
+    """Same bucket, same link: a level that costs next to nothing
+    replicates, one that costs seconds shards."""
     cfg = FlowConfig()
-    lv = rub_default_levels(fine_ms_total=120.0, w=1920, h=1080)
-    for n, floor in ((2, 0.9), (4, 0.8)):
-        r = project_schedule_auto(lv, cfg, n)
-        assert r["efficiency"] >= floor, (n, r)
-    # Router beats the fixed gate-only routing it replaced.
-    r8 = project_schedule_auto(lv, cfg, 8)
-    fixed8 = project_schedule(lv, cfg, 8, "kernel")
-    assert r8["efficiency"] > fixed8["efficiency"]
+    assert plan_level(1088, 2048, cfg, 4, t1=1e-7)[0] == "replicated"
+    assert plan_level(1088, 2048, cfg, 4, t1=1.0)[0] == "explicit"
 
 
 def test_efficiency_definition():
     cfg = FlowConfig()
-    r = project_schedule(rub_default_levels(), cfg, 4, "explicit")
+    r = project_schedule_auto(schedule_levels(584, 388), cfg, 4)
     assert r["efficiency"] == pytest.approx(r["speedup"] / 4, abs=1e-3)
     assert sum(r["levels"].values()) == 47
 
 
 def test_hybrid_split_matches_router():
-    """The hybrid pipeline's tail/fine boundary must agree with the
-    router: on the 1080p schedule at n=8 the split leaves a non-empty
-    dp tail (coarse groups the router replicates) and a non-empty sp
-    fine section."""
+    """The hybrid pipeline's tail/fine boundary agrees with the router:
+    every group before the split replicates, the split group shards, and
+    the dp tail holds strictly coarser buckets than the sharded section."""
     from tpuflow.parallel.hybrid import hybrid_split_group
     from tpuflow.solver.bucketed import _level_groups, level_schedule
 
     cfg = FlowConfig()
-    specs = level_schedule(1920, 1080, cfg.warp_levels_count,
-                          cfg.warp_scale_factor)
-    groups = _level_groups(specs, 1920, 1080, cfg)
-    g0 = hybrid_split_group(groups, cfg, 8)
-    assert 0 < g0 < len(groups), (g0, len(groups))
-    # Independent structural property (not a re-run of the router): the
-    # dp tail consists of strictly coarser buckets than every sharded
-    # fine group — the split is a coarse/fine boundary, not arbitrary.
-    tail_max_area = max(b[0] * b[1] for b, _ in groups[:g0])
-    fine_min_area = min(b[0] * b[1] for b, _ in groups[g0:])
-    assert tail_max_area < fine_min_area, (tail_max_area, fine_min_area)
+    specs = level_schedule(3840, 2160, cfg.warp_levels_count,
+                           cfg.warp_scale_factor)
+    groups = _level_groups(specs, 3840, 2160, cfg)
+    g0 = hybrid_split_group(groups, cfg, 4)
+    for bucket, _ in groups[:g0]:
+        assert plan_level(bucket[0], bucket[1], cfg, 4)[0] == "replicated"
+    if g0 < len(groups):
+        b = groups[g0][0]
+        assert plan_level(b[0], b[1], cfg, 4)[0] == "explicit"
+    if 0 < g0 < len(groups):
+        tail_max = max(b[0] * b[1] for b, _ in groups[:g0])
+        fine_min = min(b[0] * b[1] for b, _ in groups[g0:])
+        assert tail_max < fine_min
 
 
-def test_hybrid_projection_beats_pure_sp_at_n8():
-    """Round-5 verdict #3: the hybrid's two-phase schedule must be
-    PRICED end-to-end, and at n=8/1080p it must recover most of the
-    Amdahl tail that caps pure sp at ~79% — the claim 'the hybrid
-    amortizes the tail' as a number, not an inference."""
-    from tpuflow.parallel.model import (
-        project_schedule_auto,
-        project_schedule_hybrid,
-    )
-
-    cfg = FlowConfig()
-    lv = rub_default_levels(fine_ms_total=120.0, w=1920, h=1080)
-    for n in (2, 4, 8):
-        auto = project_schedule_auto(lv, cfg, n)
-        hyb = project_schedule_hybrid(lv, cfg, n)
-        # The hybrid amortizes the replicated tail over B=n pairs, so it
-        # can only improve on the pure-sp router (which pays it fully).
-        assert hyb["efficiency"] >= auto["efficiency"] - 1e-9, (n, auto, hyb)
-        assert hyb["split_level"] > 0
-        assert hyb["per_pair_ms"] <= auto["tn_ms"] + 1e-9
-    hyb8 = project_schedule_hybrid(lv, cfg, 8)
-    auto8 = project_schedule_auto(lv, cfg, 8)
-    # Recover at least half the tail-induced efficiency gap at n=8.
-    gap = auto8["eff_if_tail_free"] - auto8["efficiency"]
-    assert hyb8["efficiency"] >= auto8["efficiency"] + 0.5 * gap - 1e-3, (
-        auto8, hyb8)
+def test_fit_link_recovers_constants():
+    link = LinkParams(latency_s=20e-6, bandwidth_bytes_s=80e9)
+    sizes = [1 << 12, 1 << 16, 1 << 20, 1 << 24]
+    times = [link.latency_s + s / link.bandwidth_bytes_s for s in sizes]
+    got = fit_link(sizes, times)
+    assert got.latency_s == pytest.approx(link.latency_s, rel=1e-6)
+    assert got.bandwidth_bytes_s == pytest.approx(link.bandwidth_bytes_s,
+                                                  rel=1e-6)
 
 
-def test_hybrid_projection_b1_degenerates_to_auto_cost():
-    """With B=1 there is nothing to amortize: phase A pays one full tail
-    and phase B the routed fine levels — per-pair time equals the auto
-    projection plus only the reshard term."""
-    from tpuflow.parallel.model import (
-        project_schedule_auto,
-        project_schedule_hybrid,
-    )
-
-    cfg = FlowConfig()
-    lv = rub_default_levels(fine_ms_total=120.0, w=1920, h=1080)
-    auto = project_schedule_auto(lv, cfg, 4)
-    hyb = project_schedule_hybrid(lv, cfg, 4, B=1)
-    assert hyb["per_pair_ms"] == pytest.approx(
-        auto["tn_ms"] + hyb["reshard_us_per_pair"] / 1e3, rel=0.02)
-
-
-def test_projection_sensitivity_bound():
-    """Round-4 verdict weak #2: the ICI knobs are uncalibrated, so the
-    conclusion must come with a stated sensitivity. The sweep scales
-    bandwidth down and latencies up together; efficiency must degrade
-    monotonically, and the hybrid must still clear 80% at n=8/1080p
-    with knobs 2x adversarial."""
-    from tpuflow.parallel.model import project_sensitivity
-
-    cfg = FlowConfig()
-    lv = rub_default_levels(fine_ms_total=120.0, w=1920, h=1080)
-    sens = project_sensitivity(lv, cfg, 8)
-    effs_h = [r["eff_hybrid"] for r in sens["sweep"]]
-    effs_a = [r["eff_auto"] for r in sens["sweep"]]
-    assert effs_h == sorted(effs_h, reverse=True)
-    assert effs_a == sorted(effs_a, reverse=True)
-    by_scale = {r["knob_scale"]: r for r in sens["sweep"]}
-    # Nominal knobs: hybrid clears the target at n=8 (83.2% measured by
-    # this projection). The honest sensitivity statement: 2x-adversarial
-    # knobs put it just UNDER (77.8%) — the conclusion survives modest
-    # miscalibration but not a 2x error in every constant at once.
-    assert by_scale[1.0]["eff_hybrid"] >= 0.8, sens
-    assert by_scale[2.0]["eff_hybrid"] >= 0.75, sens
+def test_fit_level_time_recovers_constants():
+    buckets = [(64, 128), (448, 640), (1088, 2048)]
+    times = [2e-3 + 5e-9 * hb * wb for hb, wb in buckets]
+    floor, slope = fit_level_time(buckets, times)
+    assert floor == pytest.approx(2e-3, rel=1e-6)
+    assert slope == pytest.approx(5e-9, rel=1e-6)

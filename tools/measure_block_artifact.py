@@ -1,14 +1,14 @@
 #!/usr/bin/env python
 """Quantify the reference grad/log kernels' CUDA-block halo artifacts.
 
-Runs the NumPy oracle on the rub pair (full default schedule) for
-GRADIENT and LOG constancy, with clean global stencils vs the reference's
-16x8-block halo behavior (tpuflow.oracle block_emulation=True), and
-prints the flow deviation between the two. The result is recorded in
-BASELINE.md and bounds how far ANY clean-math implementation (including
-this framework) can sit from the reference binary's output for grad/log.
+Runs the NumPy oracle on the seeded 584x388 pair (tpuflow.synthetic, full
+default schedule) for GRADIENT and LOG constancy, with clean global
+stencils vs the reference's 16x8-block halo behavior (tpuflow.oracle
+block_emulation=True), and prints the flow deviation between the two. It
+bounds how far ANY clean-math implementation (including this framework)
+can sit from the reference binary's output for grad/log.
 
-Usage: python tools/measure_block_artifact.py  (~2 min of NumPy)
+Usage: python tools/measure_block_artifact.py [seed]  (~1-2 min of NumPy)
 """
 
 import os
@@ -21,18 +21,12 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 
 from tpuflow import oracle  # noqa: E402
-from tpuflow.io import read_raw_u8  # noqa: E402
+from tpuflow.synthetic import seeded_pair  # noqa: E402
 
 
 def main():
-    for d in (os.path.join(REPO, "data"), "/root/reference/data"):
-        p1, p2 = os.path.join(d, "rub1.raw"), os.path.join(d, "rub2.raw")
-        if os.path.exists(p1) and os.path.exists(p2):
-            break
-    else:
-        raise SystemExit("rub pair not found")
-    f0 = read_raw_u8(p1, 584, 388)
-    f1 = read_raw_u8(p2, 584, 388)
+    seed = int(sys.argv[1]) if len(sys.argv) > 1 else 0
+    f0, f1, _, _ = seeded_pair(584, 388, seed)
 
     for constancy in ("gradient", "log"):
         t0 = time.time()

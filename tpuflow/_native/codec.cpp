@@ -1,7 +1,7 @@
 // Native I/O codec for tpuflow: RAW frame readers/writers and the Bruhn
 // color-circle flow visualization.
 //
-// TPU-native counterpart of the reference's C++ host I/O layer
+// Counterpart of the reference's C++ host I/O layer
 // (reference: src/data_types/data2d.cpp:98-231, src/utils/io_utils.cpp:35-225).
 // The hot loops (u8->f32 widening, clamped u8 quantization, per-pixel
 // color-circle conversion) run here; Python falls back to numpy when this

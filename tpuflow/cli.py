@@ -108,11 +108,11 @@ def main(argv=None) -> int:
                         help="solve N pairs per dispatch in --sequence mode "
                              "(ONE compiled program + ONE stacked download "
                              "per N pairs; amortizes per-call dispatch and "
-                             "host round-trip costs on tunneled backends)")
+                             "host synchronization)")
     parser.add_argument("--warp-report", action="store_true",
-                        help="also solve with per-level warp-tier "
-                             "telemetry and print which levels took the "
-                             "widened (+-2D) or gather warp branch "
+                        help="also solve with per-level warp displacement "
+                             "telemetry and print which levels warped "
+                             "beyond +-D or +-2D level pixels "
                              "(violent-motion observability; a separate "
                              "compiled program, same math)")
     parser.add_argument("--quiet", action="store_true")
@@ -171,11 +171,11 @@ def main(argv=None) -> int:
             for lvl, t in zip(rep["levels"], rep["tiers"]) if t > 0
         ]
         if slow:
-            print(f"warp-report: {rep['n_wide']} level(s) on the widened "
-                  f"+-2D shift-sum, {rep['n_gather']} on the exact gather: "
+            print(f"warp-report: {rep['n_wide']} level(s) beyond +-D, "
+                  f"{rep['n_gather']} beyond +-2D: "
                   + ", ".join(f"{w_}x{h_}@tier{t}" for (w_, h_), t in slow))
         else:
-            print("warp-report: every level on the +-D fast path")
+            print("warp-report: every level within +-D")
 
     suffix = f"-{io.width}-{io.height}.raw"
     out = io.output_path

@@ -44,11 +44,9 @@ class FlowConfig:
     gaussian_sigma: float = 1.5
     data_constancy: DataConstancy = DataConstancy.GREY
 
-    # NOTE on precision: the solver is float32 throughout. A bfloat16
-    # sweep mode was built and measured in round 2 and REJECTED: only 11%
-    # faster per level while the bf16 iterate stalls convergence at
-    # ~0.29 px EPE on the rub pair — far outside the 0.05 px quality
-    # target (BASELINE.md "bfloat16 sweeps (negative result)").
+    # NOTE on precision: the solver is float32 throughout; a bfloat16
+    # iterate was measured to stall convergence at ~0.29 px EPE, far
+    # outside the 0.05 px quality target.
 
     # NOTE on gradient/log reference parity: the reference's grad/log
     # solve kernels carry 16x8-CUDA-block halo artifacts — the grad kernel
@@ -59,10 +57,10 @@ class FlowConfig:
     # derivatives AND the smoothness sums; partial edge blocks even read
     # uninitialized shared memory. tpuflow deliberately uses the clean
     # global stencils. The artifact is emulated in the NumPy oracle
-    # (tpuflow.oracle, block_emulation=True) and QUANTIFIED on the rub
-    # pair in BASELINE.md ("CUDA-block halo artifact") — that bound is the
-    # documented deviation between this framework and the reference binary
-    # for grad/log; there is no runtime flag to reproduce the bug.
+    # (tpuflow.oracle, block_emulation=True) and quantified by
+    # tools/measure_block_artifact.py — that bound is the deviation
+    # between this framework and the reference binary for grad/log; there
+    # is no runtime flag to reproduce the bug.
 
     def __post_init__(self):
         if self.warp_scale_factor <= 0.0 or self.warp_scale_factor >= 1.0:

@@ -3,14 +3,13 @@
 The reference exposes one solver with three data-constancy variants selected
 at init (reference: src/data_types/data_structs.h:27,
 src/cuda_operations/2d/cuda_operation_solve_2d.cpp:65-82). These presets
-name the classic model families those variants implement, with the
-BASELINE.json benchmark configs:
+name the classic model families those variants implement:
 
-  * Horn-Schunck: brightness constancy, single level (configs[0]);
+  * Horn-Schunck: brightness constancy, single level;
   * Brox warping: coarse-to-fine + robust penalizers, grey or gradient
-    constancy (configs[1]);
+    constancy;
   * Full model: higher-order data term + flow-driven smoothness + median
-    filtering (configs[2]);
+    filtering;
   * X-ray / log: log-derivative constancy for multiplicative illumination
     robustness (synchrotron radiography, reference README.md:30-38).
 """
@@ -26,7 +25,7 @@ def horn_schunck(
     inner_iterations: int = 5,
 ) -> FlowConfig:
     """Single-level brightness-constancy relaxation (no pyramid, no warping,
-    no presmoothing/median) — BASELINE configs[0]."""
+    no presmoothing/median)."""
     return FlowConfig(
         warp_levels_count=1,
         outer_iterations_count=outer_iterations,
@@ -44,7 +43,7 @@ def brox(
     sigma: float = 1.5,
 ) -> FlowConfig:
     """Coarse-to-fine warping with robust (sub-quadratic) penalizers and
-    gradient constancy — BASELINE configs[1]."""
+    gradient constancy."""
     return FlowConfig(
         equation_alpha=alpha,
         gaussian_sigma=sigma,
@@ -60,7 +59,7 @@ def full_model(
     median_radius: int = 5,
 ) -> FlowConfig:
     """Higher-order data term + flow-driven smoothness + median filtering —
-    BASELINE configs[2], the reference's default operating point."""
+    the reference's default operating point."""
     return FlowConfig(
         equation_alpha=alpha,
         gaussian_sigma=sigma,

@@ -1,4 +1,4 @@
-"""Pure-JAX ops (the production compute path), with Pallas fast paths.
+"""Pure-JAX ops (the production compute path).
 
 Every op is a pure function on float32 jax arrays with static shapes, and has
 a NumPy twin in tpuflow.oracle used as the test ground truth.

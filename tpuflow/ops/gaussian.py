@@ -7,10 +7,9 @@ here (the reference caps the constant buffer at 51 taps; we keep the same
 guard). The device kernels are zero-padded separable row/column convolutions
 (reference: src/kernels/convolution_2d.cu:74-261, zero outside image).
 
-TPU-native implementation: the two 1-D convolutions are expressed as
-`lax.conv_general_dilated` on a (1, 1, H, W) view — XLA lowers small
-separable convs to efficient fused VPU code; there is no need for a custom
-kernel here (presmoothing runs once per frame pair).
+Implementation: the two 1-D convolutions are banded Toeplitz matmuls by
+default, or `lax.conv_general_dilated` on a (1, 1, H, W) view
+(TPUFLOW_SMOOTH=conv); presmoothing runs once per frame pair.
 """
 
 from __future__ import annotations
@@ -95,13 +94,10 @@ def gaussian_smooth(img: jax.Array, sigma: float) -> jax.Array:
     No-op when sigma <= 0, matching the driver guard
     (reference: src/optical_flow/optical_flow_2d.cpp:218).
 
-    TPU-native form: the two 1-D convolutions are applied as banded
-    Toeplitz MATMULS (same zero-padded tap sums, f32 HIGHEST) — the
-    single-channel `lax.conv_general_dilated` lowering costs ~11 ms for
-    the two frames of a 584x388 pair on v5e (measured 2026-08-17,
-    tools/profile_levels.py `nosmooth` probe: HALF the whole pipeline),
-    while the matmul form is MXU work like the resample path.
-    TPUFLOW_SMOOTH=conv restores the conv lowering for A/B.
+    Default form: the two 1-D convolutions are applied as banded
+    Toeplitz MATMULS (same zero-padded tap sums, f32 HIGHEST, so no TF32).
+    TPUFLOW_SMOOTH=conv selects the conv lowering; which form is faster on
+    a GPU is an open A/B (ROADMAP.md).
     """
     if sigma <= 0.0:
         return img

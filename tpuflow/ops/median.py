@@ -7,10 +7,9 @@ even radius decremented, > 7 rejected.
 
 Implementation: a Batcher odd-even-merge SORTING NETWORK applied to the
 radius^2 shifted neighborhoods — every compare-exchange is a vectorized
-min/max over the whole image, which the VPU eats at full rate. XLA's
-generic variadic sort lowers to a slow scalar-ish path on TPU (~2 ms per
-584x388 call vs ~0.1 ms for the network); the reference's per-pixel
-insertion sort has the same selection semantics, so results are identical.
+min/max over the whole image, which XLA fuses into elementwise loops. The
+reference's per-pixel insertion sort has the same selection semantics, so
+results are identical.
 """
 
 from __future__ import annotations

@@ -1,17 +1,17 @@
-"""Area (box) resampling as matmuls — the TPU-native form of resample_2d.cu.
+"""Area (box) resampling as matmuls — resample_2d.cu as linear maps.
 
 The reference kernel integrates, for each output cell, the input cells
 overlapped by ``[o*delta, (o+1)*delta]`` with fractional end weights, then
 multiplies by ``out/in`` (reference: src/kernels/resample_2d.cu:44-74).
 That is exactly a linear map with a sparse banded weight matrix per axis, so
-on TPU we build the (out, in) float32 weight matrix host-side (cached per
-shape pair) and apply both axes as matrix multiplies on the MXU:
+we build the (out, in) float32 weight matrix host-side (cached per shape
+pair) and apply both axes as matrix multiplies:
 
     out = W_y @ (img @ W_x^T)
 
 This is value-preserving on upsample and area-averaging on downsample, like
 the reference, and turns an awkward variable-length gather loop into two
-dense matmuls that XLA tiles onto the systolic array.
+dense matmuls (HIGHEST precision: no TF32).
 """
 
 from __future__ import annotations
@@ -194,8 +194,7 @@ def resample_banded(
 
 # Contraction dims below this stay dense: the blocked form trades one big
 # matmul for ~out/blk small ones, which only pays once the dense band
-# waste dominates the extra op launches (1080p-class resamples; the rub
-# top bucket's 448/640-dim matmuls are already only ~15-25 us/level).
+# waste dominates the extra op launches (1080p-class resamples).
 BLOCK_BANDED_MIN_K = 1024
 
 
@@ -269,7 +268,7 @@ def resample_cols_blocked(x: jax.Array, out_bucket: int, out_n: int,
 
 
 def resample(img: jax.Array, out_w: int, out_h: int) -> jax.Array:
-    """Resample an (H, W) image to (out_h, out_w) via two MXU matmuls."""
+    """Resample an (H, W) image to (out_h, out_w) via two matmuls."""
     in_h, in_w = img.shape
     if (in_h, in_w) == (out_h, out_w):
         return img

@@ -12,11 +12,9 @@ Transliterates the math of reference: src/kernels/solve_2d.cu —
     :683-953 gradient, :391-669 log).
 
 All stencils use mirror ('reflect') boundaries like the shared-memory halo
-loads in the reference.  Everything is shift-and-multiply on the VPU; XLA
-fuses the whole sweep into a handful of loops.  The fused Pallas
-relaxation kernels live in tpuflow.ops.pallas.relax_bucket (whole-level
-variants: tpuflow.ops.pallas.level_fused); interpret-mode tests pin them
-against this module's math.
+loads in the reference.  Everything is shift-and-multiply; XLA fuses the
+whole sweep into a handful of loops.  The CUDA relaxation kernel
+(tpuflow/ops/cuda/relax.cu) transliterates this module's math.
 """
 
 from __future__ import annotations
@@ -33,8 +31,7 @@ def _shifts(a: jax.Array):
     """(center, x+1, x-1, y+1, y-1) with the mirror boundary of the
     reference halo loads (x<0 -> -x, x>=w -> 2w-x-2, i.e. 'reflect').
 
-    Implemented as slice+concat (not jnp.pad) so the same code lowers both
-    in XLA and inside Pallas TPU kernels.
+    Implemented as slice+concat (not jnp.pad).
     """
     xp = jnp.concatenate([a[:, 1:], a[:, -2:-1]], axis=1)
     xm = jnp.concatenate([a[:, 1:2], a[:, :-1]], axis=1)

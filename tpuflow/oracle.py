@@ -3,7 +3,8 @@
 This module is the permanent ground truth for the test pyramid (the reference
 has no tests of its own). Every function mirrors the corresponding CUDA
 kernel's arithmetic in float32 with the same per-pixel expression order, so
-the JAX/Pallas implementations can be validated against it numerically.
+the JAX implementations and the CUDA kernel can be validated against it
+numerically.
 
 NOT part of the production path — tests and EPE harnesses only.
 
@@ -444,7 +445,8 @@ def _second_order_tensor(fx, fy, ft, hx, hy, block_emulation=False):
 
     block_emulation=True reproduces the reference's per-16x8-CUDA-block
     replication (the halos replicate at EVERY block border, not just the
-    image edge) — the blocking artifact quantified in BASELINE.md.
+    image edge) — the blocking artifact tools/measure_block_artifact.py
+    quantifies.
 
     Reference: solve_2d.cu:867-884.
     """
@@ -565,9 +567,8 @@ def compute_flow(
 
     block_emulation=True reproduces the reference grad/log kernels'
     16x8-CUDA-block halo artifacts (see solve_sweep_grad/solve_sweep_log);
-    no effect for grey constancy. Used to QUANTIFY the artifact: the
-    measured clean-vs-block deviation on the rub pair is recorded in
-    BASELINE.md."""
+    no effect for grey constancy. Used to QUANTIFY the artifact
+    (tools/measure_block_artifact.py)."""
     from tpuflow.pyramid import level_schedule
 
     frame_0 = frame_0.astype(F)

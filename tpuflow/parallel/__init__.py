@@ -2,18 +2,18 @@
 
 The reference is strictly single-GPU (one context on device 0,
 reference: src/main.cpp:51-54, src/utils/cuda_utils.cpp:43); everything in
-this package is new TPU-native design per SURVEY.md §2.7:
+this package is new design per SURVEY.md §2.7:
 
   * data parallelism — a batch axis over independent frame pairs;
   * spatial parallelism — each pyramid level's rows sharded over the mesh,
     with the 1-px stencil halos exchanged via XLA collectives (GSPMD
     partitions the shift-and-pad stencils automatically; the explicit
-    shard_map + ppermute path is used by the Pallas kernels);
+    shard_map + ppermute halo path runs the relaxation);
   * replicate-below-threshold — coarse levels smaller than the mesh run
     replicated instead of sharded;
   * cost-based routing — halo="auto" picks the cheapest of
-    {replicate, explicit@k, kernel@k} per level (parallel.model);
-  * the dp x sp hybrid — coarse tails one-pair-per-chip, fine levels
+    {replicate, explicit@k} per level (parallel.model);
+  * the dp x sp hybrid — coarse tails one-pair-per-device, fine levels
     row-sharded (parallel.hybrid), amortizing the Amdahl tail over a
     batch.
 """

@@ -3,8 +3,8 @@
 Frames arrive as (B, H, W) stacks. The batch axis is sharded over the mesh's
 ``data`` axis and image rows over the ``y`` axis; every per-level program is
 ``vmap``-ed over the batch and jitted with explicit in/out shardings. XLA's
-GSPMD partitioner turns the stencil shifts into 1-row halo exchanges over
-ICI and partitions the resample matmuls — the classic scaling-book recipe
+GSPMD partitioner turns the stencil shifts into 1-row halo exchanges
+between devices and partitions the resample matmuls — the classic scaling-book recipe
 (mesh -> annotate -> let XLA insert collectives).
 
 Coarse pyramid levels whose height is too small to split usefully run
@@ -27,8 +27,8 @@ from tpuflow.ops.gaussian import gaussian_smooth
 from tpuflow.pyramid import LevelSpec, level_schedule
 from tpuflow.solver.level import level_step
 
-# Shard rows only when each device keeps at least this many rows (feeding
-# the 8-sublane VPU tiles; below this the halo traffic dominates).
+# Shard rows only when each device keeps at least this many rows (below
+# this the halo traffic dominates).
 MIN_ROWS_PER_SHARD = 16
 
 
@@ -53,10 +53,8 @@ def _compiled_batched_level(
     out_spec = _spatial_spec(spec.height, mesh, data_axis, y_axis)
 
     def vstep(a, b, u, v):
-        # use_pallas=False: under vmap + GSPMD the full-block Pallas kernel
-        # would defeat spatial partitioning; the XLA path partitions cleanly.
         un, vn = jax.vmap(
-            lambda a_, b_, u_, v_: level_step(a_, b_, u_, v_, spec, cfg, use_pallas=False)
+            lambda a_, b_, u_, v_: level_step(a_, b_, u_, v_, spec, cfg)
         )(a, b, u, v)
         # Pin the level output layout; everything upstream is GSPMD-propagated
         # (intermediate level sizes are rarely divisible by the mesh, so the

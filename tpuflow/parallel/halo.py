@@ -29,19 +29,8 @@ Everything outside the relaxation (box-resample matmuls, warp, median)
 stays on the GSPMD path — the relaxation is ~95% of the per-level work
 (outer x (1 + inner) stencil passes vs a handful for the rest).
 
-Why the per-shard compute is XLA rather than the Pallas kernel: the
-unsharded kernel's win is VMEM residency across ALL outer x (1+inner)
-~240 passes. Under spatial sharding the halo exchange forces the iterate
-through a collective every outer iteration, so a per-shard kernel could
-only fuse the (1 + inner) = 6 passes between exchanges — a small
-fraction of the unsharded fusion win — while needing a row-offset
-coordinate system, externally-supplied iterate init, and suppressed
-internal ghost maintenance. The XLA local block (everything still fused
-by XLA within an outer) is the right cost/complexity point until real
-multi-chip hardware exists to measure on; the speed-of-light successor
-is a Pallas kernel whose halo exchange itself runs in-kernel via
-`make_async_remote_copy` (ring RDMA), overlapping the k-sweep compute —
-see BASELINE.md round-3 levers.
+The per-shard compute is the XLA engine. The exchange is a plain
+``ppermute`` under ``shard_map``, which XLA hands to NCCL.
 """
 
 from __future__ import annotations

@@ -1,9 +1,7 @@
-"""dp x sp HYBRID batch pipeline: the coarse-tail Amdahl mitigation
-(round-3 verdict #3) as executable code, not just a model note.
+"""dp x sp HYBRID batch pipeline: the coarse-tail Amdahl mitigation.
 
 Under pure spatial sharding the ~27-level coarse tail runs replicated on
-every chip — pure serial fraction; the analytic model prices it at ~8
-efficiency points at n=8/1080p (`eff_if_tail_free`, parallel/model.py).
+every device — pure serial fraction (parallel/model.py prices it).
 Frame pairs are independent, so a BATCH of B = n pairs can amortize it:
 
   phase A (coarse tail, data-parallel): one pair per chip — each chip
@@ -13,14 +11,14 @@ Frame pairs are independent, so a BATCH of B = n pairs can amortize it:
     tail of wall-clock instead of B.
 
   phase B (fine levels, spatially sharded): pairs processed
-    sequentially, each pair's rows sharded over all n chips with the
-    cost-routed relaxation (replicate/explicit@k/kernel@k per bucket,
+    sequentially, each pair's rows sharded over all n devices with the
+    cost-routed relaxation (replicate/explicit@k per bucket,
     parallel.model.plan_level — the halo="auto" router). XLA inserts
     the one resharding between the phases.
 
 The split point is the first level group the router would NOT
 replicate: below it sharding pays, above it replication was pure
-Amdahl. Throughput upper bound = the model's eff_if_tail_free.
+Amdahl.
 
 Numerics: phase A is the unsharded engine per pair; phase B is the
 verified sharded relaxation — per-pair EPE vs the unsharded solve is
@@ -96,14 +94,6 @@ def compiled_full_pipeline_hybrid(
         path, kk, _ = plans[bucket]
         if path == "replicated":
             return None
-        if path == "kernel":
-            from tpuflow.parallel.halo_kernel import relax_sharded_kernel
-
-            def kfn(f0_l, f1_w, uu, vv, sc, cfg_, kk=kk):
-                return relax_sharded_kernel(
-                    f0_l, f1_w, uu, vv, sc, cfg_, mesh, y_axis, k_outer=kk)
-
-            return kfn
         from tpuflow.parallel.halo import relax_sharded
 
         def efn(f0_l, f1_w, uu, vv, sc, cfg_, kk=kk):
@@ -169,7 +159,7 @@ def compiled_full_pipeline_hybrid(
                 def body(carry, sc, bucket=bucket, relax_fn=relax_fn):
                     uu, vv = bucketed_level_step(
                         f0s, f1s, carry[0], carry[1], sc, bucket,
-                        top_bucket, cfg, use_pallas=False, relax_fn=relax_fn)
+                        top_bucket, cfg, relax="xla", relax_fn=relax_fn)
                     return (constrain(uu, bucket), constrain(vv, bucket)), None
 
                 (u, v), _ = jax.lax.scan(body, (u, v), stacked,

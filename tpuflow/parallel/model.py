@@ -1,42 +1,32 @@
-"""Analytic sp-scaling projection: collective volume x ICI cost next to
-the pinned exchange counts.
+"""Cost model of spatial sharding: which levels to shard, and how often to
+exchange halos.
 
-No multi-chip hardware exists in the build environment, so the >=80%
-linear-scaling BASELINE target cannot be *measured* here. This module
-makes it *estimable*: given measured single-chip per-level times and ICI
-parameters, it walks the same per-level applicability gates the real
-sharded pipeline uses (replicate / explicit ppermute / in-kernel RDMA)
-and prices each level as
+The sharded pipeline (solver.bucketed.compiled_full_pipeline_sharded with
+halo="auto") and the front door's route choice (solver.flow2d.plan_parallel)
+price each pyramid level on ``n_y`` row shards as
 
     t_level(n) = t_compute + t_comm
     t_compute  = t1 * (s_rows + 2*halo) / hb        (redundant-halo split)
-    t_comm     = msgs * latency + bytes / bandwidth  (per ring direction)
+    t_comm     = msgs * (latency + bytes / bandwidth)
 
-with the exact per-level message/byte counts of each path, including the
-k-outer halo fusion knob (TPUFLOW_HALO_K / the k_outer parameter of
-parallel.halo.relax_sharded and parallel.halo_kernel.relax_sharded_kernel):
-one exchange of a k*(inner+1)-row halo per k fused outer iterations, with
-k*(inner+1) extra rows of redundant compute per side. Valid-region
-numerics are BIT-IDENTICAL for any k (pinned by test_halo.py /
-test_halo_kernel.py), so k is a pure latency-vs-redundancy trade the
-model can optimize over:
+with the exact per-level message and byte counts of the explicit halo path
+(parallel/halo.py): (n_const + 2) fields exchanged once per level, plus
+(du, dv) once per EXCHANGE, each exchange sending a k*(inner+1)-row halo up
+and down the ring (k = k-outer fusion factor: one exchange per k fused
+outer iterations; valid-region numerics are k-invariant). Levels whose
+sharded price is not below ``t1`` stay replicated.
 
-  explicit (parallel/halo.py): (n_const + 2) fields x 2 ppermutes of the
-    k-widened halo once per level, plus 2 fields x 2 ppermutes per
-    EXCHANGE (= ceil(outer/k) of them); every ppermute also pays an XLA
-    collective-dispatch overhead (`dispatch_s`).
-  kernel (parallel/halo_kernel.py): same once-per-level constant volume
-    (halo rounded up to the 8-sublane tile), 2 fields x 2 RDMA messages
-    + 2 barrier semaphore signals per EXCHANGE, at bare hop latency — no
-    XLA dispatch.
-  replicated: t_level(n) = t1 (buckets under the gates run unsharded).
-
-Default ICI parameters are the public TPU v5e numbers (one-way
-inter-chip bandwidth ~45 GB/s per link, ~1 us hop latency) and a
-measured-elsewhere 5 us XLA collective dispatch floor; all are
-overridable — the model's value is the STRUCTURE (which levels shard,
-what volume moves), the constants are calibration knobs for the day
-hardware exists. tools/report_scaling.py --project prints the table.
+The constants are measurements on NVIDIA H100 80GB HBM3 (SXM) cards at a
+700 W power limit (PERF.md names the runs): ``LinkParams`` is a
+least-squares fit of one jitted ``ppermute`` ring step over four cards
+joined by NVLink, 4 KiB to 64 MiB per device, each call timed to
+``block_until_ready`` (so its latency includes the dispatch of a
+stand-alone call and is an upper bound for a collective inside a larger
+program); ``estimate_level_t1`` is fitted to one-card relaxation times of
+one level of the XLA engine (the engine the sharded pipeline runs) at the
+64x128, 448x640 and 1088x2048 buckets, and ``estimate_level_t1_kernel``
+to the same levels on the CUDA kernel (the engine one card runs).
+``chip_smoke.py --cards 4`` re-measures them.
 """
 
 from __future__ import annotations
@@ -48,351 +38,152 @@ from tpuflow.config import DataConstancy, FlowConfig
 
 
 @dataclass(frozen=True)
-class ICIParams:
-    bandwidth_bytes_s: float = 4.5e10   # one-way per ring direction (v5e)
-    hop_latency_s: float = 1e-6
-    dispatch_s: float = 5e-6            # XLA collective launch overhead
+class LinkParams:
+    """Cost of one ``ppermute`` of B bytes per device between the cards of
+    a 4-card NVLink mesh: latency_s + B / bandwidth_bytes_s."""
+
+    latency_s: float = 678e-6          # 4x H100 80GB HBM3, NVLink, 700 W
+    bandwidth_bytes_s: float = 179e9   # 4x H100 80GB HBM3, NVLink, 700 W
+
+
+# One-card per-level relaxation time at the default 40 x (1 + 5) schedule,
+# t1 = FLOOR + PER_PIXEL * hb * wb, on one H100 80GB HBM3 (700 W):
+# the XLA scan engine ...
+LEVEL_FLOOR_S = 7.03e-3
+LEVEL_PER_PIXEL_S = 7.03e-9
+# ... and the CUDA kernel (tpuflow/ops/cuda/relax.cu).
+KERNEL_LEVEL_FLOOR_S = 1.70e-3
+KERNEL_LEVEL_PER_PIXEL_S = 3.95e-9
 
 
 def _n_const_fields(cfg: FlowConfig) -> int:
     return 5 if cfg.data_constancy == DataConstancy.GREY else 10
 
 
-def _halo_rows(cfg: FlowConfig, path: str, k: int) -> int:
-    halo = k * (cfg.inner_iterations_count + 1)
-    if path == "kernel":
-        halo = -(-halo // 8) * 8
-    return halo
+def _halo_rows(cfg: FlowConfig, k: int) -> int:
+    return k * (cfg.inner_iterations_count + 1)
 
 
-def level_comm_cost(
-    hb: int, wb: int, cfg: FlowConfig, n_y: int, path: str, ici: ICIParams,
-    k: int = 1,
-) -> float:
-    """Seconds of halo-exchange cost for ONE level on one shard (both
-    ring directions run concurrently on separate links, so cost is the
-    per-direction maximum = one direction's volume)."""
-    outer = cfg.outer_iterations_count
-    n_exchanges = -(-outer // k)
-    halo = _halo_rows(cfg, path, k)
-    row_bytes = halo * wb * 4
-    if path == "explicit":
-        # (n_cf + u + v) once, (du, dv) per exchange; 1 ppermute per
-        # field per direction.
-        n_once = _n_const_fields(cfg) + 2
-        msgs = n_once + 2 * n_exchanges
-        per_msg = ici.dispatch_s + ici.hop_latency_s + row_bytes / ici.bandwidth_bytes_s
-        return msgs * per_msg
-    if path == "kernel":
-        # once: consts (incl u, v) RDMA; per exchange: du+dv RDMA + 2
-        # barrier semaphore signals.
-        msgs_once = _n_const_fields(cfg) + 2
-        per_rdma = ici.hop_latency_s + row_bytes / ici.bandwidth_bytes_s
-        per_exchange = 2 * per_rdma + 2 * ici.hop_latency_s
-        return msgs_once * per_rdma + n_exchanges * per_exchange
-    raise ValueError(path)
+def level_comm_cost(hb: int, wb: int, cfg: FlowConfig, n_y: int,
+                    link: LinkParams = LinkParams(), k: int = 1) -> float:
+    """Seconds of halo exchange for ONE level on one shard. Both ring
+    directions run concurrently, so the cost is one direction's."""
+    n_exchanges = -(-cfg.outer_iterations_count // k)
+    row_bytes = _halo_rows(cfg, k) * wb * 4
+    msgs = _n_const_fields(cfg) + 2 + 2 * n_exchanges
+    return msgs * (link.latency_s + row_bytes / link.bandwidth_bytes_s)
 
 
-def level_sharded_time(
-    t1_s: float, hb: int, wb: int, cfg: FlowConfig, n_y: int, path: str,
-    ici: ICIParams, k: int = 1,
-) -> Tuple[float, str]:
-    """(projected seconds on n_y shards, resolved path) for one level.
-
-    Applies the real gates: the kernel path falls back to explicit, and
-    both fall back to replication, exactly as
-    solver.bucketed.compiled_full_pipeline_sharded routes (with the same
-    k the gates see via their k_outer parameter)."""
+def level_sharded_time(t1_s: float, hb: int, wb: int, cfg: FlowConfig,
+                       n_y: int, link: LinkParams = LinkParams(), k: int = 1
+                       ) -> Tuple[float, str]:
+    """(projected seconds on n_y shards, "explicit" or "replicated") for
+    one level, honoring the explicit path's applicability gate."""
     from tpuflow.parallel.halo import halo_applicable
-    from tpuflow.parallel.halo_kernel import kernel_halo_applicable
 
-    resolved = path
-    if path == "kernel" and not kernel_halo_applicable(hb, wb, n_y, cfg,
-                                                       k_outer=k):
-        resolved = "explicit"
-    if resolved == "explicit" and not halo_applicable(hb, n_y, cfg, k_outer=k):
+    if not halo_applicable(hb, n_y, cfg, k_outer=k):
         return t1_s, "replicated"
-    halo = _halo_rows(cfg, resolved, k)
-    s_rows = hb // n_y
-    compute = t1_s * (s_rows + 2 * halo) / hb
-    return compute + level_comm_cost(hb, wb, cfg, n_y, resolved, ici, k), resolved
-
-
-def project_schedule(
-    levels: Sequence[Tuple[int, int, float]], cfg: FlowConfig, n_y: int,
-    path: str = "kernel", ici: ICIParams = ICIParams(), k: int = 1,
-) -> dict:
-    """Project total sharded time for a [(hb, wb, t1_seconds), ...]
-    schedule. Returns totals, speedup vs sum(t1) and linear-scaling
-    efficiency (= speedup / n_y), the per-path level counts, and the
-    Amdahl decomposition the round-3 verdict asked for: how the
-    projected time splits between replicated levels (the coarse tail —
-    unscaled serial fraction), sharded compute, and communication, plus
-    `eff_if_tail_free` = the efficiency this schedule would reach if the
-    replicated tail cost nothing (the dp x sp hybrid's upper bound: on a
-    ('data', 'y') mesh the tail can run data-parallel across the y rows'
-    chips, so its cost amortizes over batched pairs)."""
-    t1_total = sum(t for _, _, t in levels)
-    tn_total = 0.0
-    t_repl = 0.0        # replicated (Amdahl serial) share of tn
-    t_comm = 0.0        # collective share of tn
-    t_shard = 0.0       # sharded-compute share of tn
-    counts: dict = {}
-    for hb, wb, t1 in levels:
-        tn, resolved = level_sharded_time(t1, hb, wb, cfg, n_y, path, ici, k)
-        tn_total += tn
-        counts[resolved] = counts.get(resolved, 0) + 1
-        if resolved == "replicated":
-            t_repl += tn
-        else:
-            c = level_comm_cost(hb, wb, cfg, n_y, resolved, ici, k)
-            t_comm += c
-            t_shard += tn - c
-    speedup = t1_total / tn_total if tn_total else float("inf")
-    # Replicated levels cost exactly their single-chip time (t_repl), so
-    # removing the tail from BOTH sides isolates the sharded levels'
-    # scaling quality: (t1 - t_repl) / (tn - t_repl) / n.
-    tail_free = tn_total - t_repl
-    eff_tail_free = (
-        (t1_total - t_repl) / tail_free / n_y if tail_free else float("inf")
-    )
-    return {
-        "n_y": n_y,
-        "path": path,
-        "k": k,
-        "t1_ms": round(t1_total * 1e3, 3),
-        "tn_ms": round(tn_total * 1e3, 3),
-        "speedup": round(speedup, 3),
-        "efficiency": round(speedup / n_y, 3),
-        "levels": counts,
-        # Amdahl decomposition of tn (seconds -> ms):
-        "tn_replicated_ms": round(t_repl * 1e3, 3),
-        "tn_comm_ms": round(t_comm * 1e3, 3),
-        "tn_sharded_compute_ms": round(t_shard * 1e3, 3),
-        "eff_if_tail_free": round(eff_tail_free, 3),
-    }
+    halo = _halo_rows(cfg, k)
+    compute = t1_s * (hb // n_y + 2 * halo) / hb
+    return compute + level_comm_cost(hb, wb, cfg, n_y, link, k), "explicit"
 
 
 def estimate_level_t1(hb: int, wb: int, cfg: FlowConfig) -> float:
-    """Calibrated single-chip per-level cost estimate in seconds.
-
-    Anchored to the round-3 measured breakdown (BASELINE.md, fence-free
-    slope timing): coarse levels 42 us at the (64, 128) bucket, fine
-    levels ~1.0 ms at (448, 640) under the default 40x(1+5) schedule.
-    Linear in pixels (the relaxation, which scales with the pass count)
-    plus a fixed per-level floor (resample matmuls + glue, which does
-    not). Used by plan_level when no measured t1 is supplied; a
-    calibration heuristic, not a measurement."""
+    """One-card seconds of one level's XLA relaxation at bucket (hb, wb),
+    scaled linearly in the number of stencil passes from the default
+    40 x (1 + 5)."""
     passes = cfg.outer_iterations_count * (1 + cfg.inner_iterations_count)
-    return 14e-6 + 3.45e-9 * hb * wb * (passes / 240.0)
+    return (LEVEL_FLOOR_S + LEVEL_PER_PIXEL_S * hb * wb) * (passes / 240.0)
+
+
+def estimate_level_t1_kernel(hb: int, wb: int, cfg: FlowConfig) -> float:
+    """estimate_level_t1 for the CUDA relaxation kernel."""
+    passes = cfg.outer_iterations_count * (1 + cfg.inner_iterations_count)
+    return ((KERNEL_LEVEL_FLOOR_S + KERNEL_LEVEL_PER_PIXEL_S * hb * wb)
+            * (passes / 240.0))
 
 
 _PLAN_KS = (1, 2, 4, 5, 8, 10, 20, 40)
 
 
-def plan_level(
-    hb: int, wb: int, cfg: FlowConfig, n_y: int,
-    ici: ICIParams = ICIParams(), t1: float | None = None,
-    paths: Sequence[str] = ("kernel", "explicit"),
-    ks: Sequence[int] = _PLAN_KS,
-) -> Tuple[str, int, float]:
-    """Cheapest (path, k, projected_seconds) for ONE level: replicate vs
-    each sharded path x fusion factor, honoring the real gates.
-
-    This is the cost-based router behind halo="auto"
-    (solver.bucketed.compiled_full_pipeline_sharded): round 3 sharded
-    every level its gates admitted, which priced mid-pyramid levels
-    ABOVE their replicated cost (per-outer exchange latency > the
-    sharding gain) — the projected 1080p n=4 kernel efficiency was 72%.
-    Choosing replicate-vs-shard and k per level lifts the same
-    projection to ~89% (round-4 sweep; valid-region numerics are
-    k-invariant and path-invariant, so the router changes cost only)."""
+def plan_level(hb: int, wb: int, cfg: FlowConfig, n_y: int,
+               link: LinkParams = LinkParams(), t1: float | None = None,
+               ks: Sequence[int] = _PLAN_KS) -> Tuple[str, int, float]:
+    """Cheapest (path, k, projected_seconds) for ONE level: replicate, or
+    the explicit halo path at the best fusion factor k."""
     t1 = estimate_level_t1(hb, wb, cfg) if t1 is None else t1
     best = (t1, "replicated", 1)
-    for path in paths:
-        for k in ks:
-            tt, resolved = level_sharded_time(t1, hb, wb, cfg, n_y, path,
-                                              ici, k)
-            if resolved == path and tt < best[0]:
-                best = (tt, path, k)
+    for k in ks:
+        tt, resolved = level_sharded_time(t1, hb, wb, cfg, n_y, link, k)
+        if resolved == "explicit" and tt < best[0]:
+            best = (tt, "explicit", k)
     return best[1], best[2], best[0]
 
 
-def project_schedule_auto(
-    levels: Sequence[Tuple[int, int, float]], cfg: FlowConfig, n_y: int,
-    ici: ICIParams = ICIParams(), paths: Sequence[str] = ("kernel", "explicit"),
-) -> dict:
-    """project_schedule with the halo="auto" router: per-level cheapest
-    (path, k). Returns the same totals plus the per-bucket plan."""
+def schedule_levels(w: int, h: int, cfg: FlowConfig | None = None
+                    ) -> List[Tuple[int, int, float]]:
+    """[(hb, wb, t1_seconds), ...] for every level of a (w, h) frame's
+    schedule, coarsest first, priced by estimate_level_t1."""
+    from tpuflow.solver.bucketed import _level_groups, level_schedule
+
+    cfg = cfg or FlowConfig()
+    specs = level_schedule(w, h, cfg.warp_levels_count, cfg.warp_scale_factor)
+    out = []
+    for (hb, wb), stacked in _level_groups(specs, w, h, cfg):
+        out += [(hb, wb, estimate_level_t1(hb, wb, cfg))] * stacked[0].shape[0]
+    return out
+
+
+def project_schedule_auto(levels: Sequence[Tuple[int, int, float]],
+                          cfg: FlowConfig, n_y: int,
+                          link: LinkParams = LinkParams()) -> dict:
+    """Projected time of a [(hb, wb, t1), ...] schedule under the
+    halo="auto" router: totals, speedup and efficiency (speedup / n_y),
+    per-path level counts, and the replicated (Amdahl) share."""
     t1_total = sum(t for _, _, t in levels)
     tn_total = 0.0
     t_repl = 0.0
     counts: dict = {}
-    plan: dict = {}
-    for li, (hb, wb, t1) in enumerate(levels):
-        path, k, tt = plan_level(hb, wb, cfg, n_y, ici, t1, paths)
+    for hb, wb, t1 in levels:
+        path, _, tt = plan_level(hb, wb, cfg, n_y, link, t1)
         tn_total += tt
         counts[path] = counts.get(path, 0) + 1
-        # Keyed by LEVEL index (round-4 advisor): same-bucket levels with
-        # different measured t1 can legitimately route differently, and a
-        # bucket-string key silently kept only the last one.
-        plan[f"L{li}:{hb}x{wb}"] = f"{path}@k={k}" if path != "replicated" else path
         if path == "replicated":
             t_repl += tt
     speedup = t1_total / tn_total if tn_total else float("inf")
-    tail_free = tn_total - t_repl
     return {
         "n_y": n_y,
-        "path": "auto",
         "t1_ms": round(t1_total * 1e3, 3),
         "tn_ms": round(tn_total * 1e3, 3),
         "speedup": round(speedup, 3),
         "efficiency": round(speedup / n_y, 3),
         "levels": counts,
         "tn_replicated_ms": round(t_repl * 1e3, 3),
-        "eff_if_tail_free": round(
-            (t1_total - t_repl) / tail_free / n_y if tail_free else float("inf"),
-            3),
-        "plan": plan,
     }
 
 
-def project_schedule_hybrid(
-    levels: Sequence[Tuple[int, int, float]], cfg: FlowConfig, n_y: int,
-    B: int | None = None, ici: ICIParams = ICIParams(),
-    paths: Sequence[str] = ("kernel", "explicit"),
-) -> dict:
-    """End-to-end projection of the dp x sp HYBRID two-phase schedule
-    (parallel/hybrid.py) — the round-4 verdict asked for this as an
-    artifact, not an upper bound.
-
-    Model (mirrors compiled_full_pipeline_hybrid exactly):
-
-      phase A — every level BEFORE the router's first sharded level runs
-        data-parallel: B pairs over n_y chips, ceil(B/n_y) tails of
-        wall-clock, zero collectives.
-      reshard — between the phases XLA moves each pair's working set
-        (smoothed f0, f1, u, v = 4 fields at the top bucket) from
-        pair-per-chip to row-sharded layout; priced as one dispatch +
-        each chip shipping its (n-1)/n share of the 4 fields per pair.
-      phase B — the remaining levels run pair-at-a-time with the
-        cost-routed sharded relaxation: B * sum of plan_level costs.
-
-    Per-pair wall-clock = (phase_A + B * (reshard + t_fine)) / B;
-    efficiency = t1_total / per_pair / n_y. With B = n_y (the default,
-    matching compute_flow_bucketed_hybrid's padding) phase A costs one
-    tail for the whole batch — the Amdahl mitigation, now priced rather
-    than inferred from `eff_if_tail_free`."""
-    B = n_y if B is None else B
-    t1_total = sum(t for _, _, t in levels)
-    plans = [plan_level(hb, wb, cfg, n_y, ici, t1, paths)
-             for hb, wb, t1 in levels]
-    g0 = next((i for i, (p, _, _) in enumerate(plans) if p != "replicated"),
-              len(levels))
-    t_tail = sum(t for _, _, t in levels[:g0])
-    phase_a = -(-B // n_y) * t_tail
-    t_fine = sum(tt for _, _, tt in plans[g0:])
-    # Reshard: 4 fields at the top (finest) bucket per pair.
-    hb0, wb0 = max(((hb, wb) for hb, wb, _ in levels),
-                   key=lambda s: s[0] * s[1]) if levels else (0, 0)
-    reshard = (ici.dispatch_s
-               + 4 * hb0 * wb0 * 4 * (n_y - 1) / n_y / ici.bandwidth_bytes_s)
-    per_pair = (phase_a + B * (reshard + t_fine)) / B if B else 0.0
-    speedup = t1_total / per_pair if per_pair else float("inf")
-    counts: dict = {}
-    for p, _, _ in plans[g0:]:
-        counts[p] = counts.get(p, 0) + 1
-    return {
-        "n_y": n_y,
-        "path": "hybrid",
-        "B": B,
-        "split_level": g0,
-        "t1_ms": round(t1_total * 1e3, 3),
-        "per_pair_ms": round(per_pair * 1e3, 3),
-        "phase_a_ms": round(phase_a * 1e3, 3),
-        "reshard_us_per_pair": round(reshard * 1e6, 3),
-        "speedup": round(speedup, 3),
-        "efficiency": round(speedup / n_y, 3),
-        "levels_phase_b": counts,
-    }
+def fit_link(sizes_bytes: Sequence[int], seconds: Sequence[float]
+             ) -> LinkParams:
+    """Least-squares fit of t = latency + bytes / bandwidth to measured
+    ppermute times (chip_smoke.py --cards 4)."""
+    n = len(sizes_bytes)
+    mx = sum(sizes_bytes) / n
+    my = sum(seconds) / n
+    sxx = sum((x - mx) ** 2 for x in sizes_bytes)
+    sxy = sum((x - mx) * (y - my) for x, y in zip(sizes_bytes, seconds))
+    slope = sxy / sxx
+    return LinkParams(latency_s=max(my - slope * mx, 0.0),
+                      bandwidth_bytes_s=1.0 / slope)
 
 
-def project_sensitivity(
-    levels: Sequence[Tuple[int, int, float]], cfg: FlowConfig, n_y: int,
-    scales: Sequence[float] = (0.5, 1.0, 2.0, 4.0),
-) -> dict:
-    """Bound the projection's knob risk (round-4 verdict weak #2): the
-    ICI constants (45 GB/s link, 1 us hop, 5 us dispatch) were never
-    calibrated against hardware, so report the auto-router AND hybrid
-    efficiency across a 8x knob range — bandwidth scaled DOWN and
-    latencies scaled UP by each factor simultaneously (the adversarial
-    direction; scaling all knobs favorably is the optimistic edge).
-
-    Reading the result: if eff_min at scale 4.0 still clears the target,
-    no plausible miscalibration flips the conclusion; if it does not,
-    the table states exactly how wrong the constants would have to be."""
-    base = ICIParams()
-    rows = []
-    for s in scales:
-        ici = ICIParams(
-            bandwidth_bytes_s=base.bandwidth_bytes_s / s,
-            hop_latency_s=base.hop_latency_s * s,
-            dispatch_s=base.dispatch_s * s,
-        )
-        auto = project_schedule_auto(levels, cfg, n_y, ici)
-        hyb = project_schedule_hybrid(levels, cfg, n_y, ici=ici)
-        rows.append({
-            "knob_scale": s,
-            "eff_auto": auto["efficiency"],
-            "eff_hybrid": hyb["efficiency"],
-        })
-    return {"n_y": n_y, "sweep": rows}
-
-
-def best_k(
-    levels: Sequence[Tuple[int, int, float]], cfg: FlowConfig, n_y: int,
-    path: str = "kernel", ici: ICIParams = ICIParams(),
-    ks: Sequence[int] = (1, 2, 4, 5, 8, 10, 20, 40),
-) -> dict:
-    """Sweep the k-outer fusion factor and return the best projection
-    (ties -> smallest k). The real pipeline applies the chosen k via
-    TPUFLOW_HALO_K; numerics are k-invariant so this is purely a
-    performance knob."""
-    best = None
-    for k in ks:
-        r = project_schedule(levels, cfg, n_y, path, ici, k)
-        if best is None or r["tn_ms"] < best["tn_ms"]:
-            best = r
-    return best
-
-
-def rub_default_levels(
-    fine_ms_total: float = 7.0, coarse_us_per_level: float = 42.0,
-    w: int = 584, h: int = 388, cfg: FlowConfig | None = None,
-) -> List[Tuple[int, int, float]]:
-    """The measured rub-default per-level time breakdown (BASELINE.md:
-    fine buckets ~7 ms of the 8.96 ms pair, coarse tail ~42 us/level of
-    real work), distributed over the actual level schedule: the fine
-    total is split over the levels of the two finest buckets
-    proportional to bucket area, every other level gets the flat coarse
-    cost. A calibration convenience for tools/report_scaling.py, not a
-    measurement."""
-    from tpuflow.solver.bucketed import _level_groups, level_schedule
-
-    cfg = cfg or FlowConfig()
-    specs = level_schedule(w, h, cfg.warp_levels_count, cfg.warp_scale_factor)
-    groups = _level_groups(specs, w, h, cfg)
-    area_total = sum(
-        bucket[0] * bucket[1] * stacked[0].shape[0]
-        for bucket, stacked in groups[-2:]
-    )
-    per_level: List[Tuple[int, int, float]] = []
-    for gi, (bucket, stacked) in enumerate(groups):
-        hb, wb = bucket
-        for _ in range(stacked[0].shape[0]):
-            if gi >= len(groups) - 2:
-                per_level.append(
-                    (hb, wb, fine_ms_total * 1e-3 * (hb * wb) / area_total))
-            else:
-                per_level.append((hb, wb, coarse_us_per_level * 1e-6))
-    return per_level
+def fit_level_time(buckets: Sequence[Tuple[int, int]],
+                   seconds: Sequence[float]) -> Tuple[float, float]:
+    """Least-squares (floor_s, per_pixel_s) of t1 = floor + per_pixel * area
+    over measured one-card level times."""
+    areas = [hb * wb for hb, wb in buckets]
+    n = len(areas)
+    mx = sum(areas) / n
+    my = sum(seconds) / n
+    sxx = sum((x - mx) ** 2 for x in areas)
+    slope = sum((x - mx) * (y - my) for x, y in zip(areas, seconds)) / sxx
+    return max(my - slope * mx, 0.0), slope

@@ -1,6 +1,6 @@
 """The coarse-to-fine optical-flow driver (public API).
 
-TPU execution contract, preserved from the reference
+Execution contract, preserved from the reference
 (reference: src/optical_flow/optical_flow_2d.cpp:214-215,543-545):
 upload the two frames once, run every pyramid level on-device, download the
 final flow once. Each level is one jitted XLA program
@@ -46,8 +46,7 @@ class FlowResult:
     """Final flow in original-pixel units, materialized on host (numpy) —
     the flow leaves the device exactly once, like the reference's single
     D2H copy pair. ``seconds`` covers device compute + the final download,
-    measured by host materialization (async backends may return from
-    ``block_until_ready`` early; device_get is the honest fence)."""
+    measured to host materialization."""
 
     u: np.ndarray
     v: np.ndarray
@@ -62,38 +61,41 @@ class FlowResult:
 
 def plan_parallel(shape: Tuple[int, int], batched: bool, cfg: FlowConfig,
                   mesh) -> str:
-    """The front-door routing decision (round-5 verdict #7): which
-    parallel strategy `compute_flow(..., mesh=)` uses, chosen by the
-    same cost model that routes the sharded pipeline per level
-    (parallel.model.plan_level).
+    """The front-door routing decision: which parallel strategy
+    `compute_flow(..., mesh=)` uses.
 
       (B, H, W)    -> "dp"     always: pairs are independent, so one
-                               pair per chip with the full local engine
-                               is throughput-optimal whenever a frame
-                               fits one chip (projected dp efficiency
-                               ~1.0 vs the hybrid's 0.83 at n=8/1080p —
-                               the hybrid is the LATENCY specialist,
-                               reached explicitly via
+                               pair per device with the full local
+                               engine needs no collectives (the hybrid
+                               is the LATENCY specialist, reached
+                               explicitly via
                                compute_flow_bucketed_hybrid).
-      single pair  -> "sp"     if the router would shard the finest
-                               bucket over the mesh's 'y' axis (the
-                               projection says row-sharding beats one
-                               chip in latency — even rub-size gains
-                               2.6x at n=8),
-                      "single" otherwise (tiny frames: every level
-                               replicates; sharding only adds cost).
+      single pair  -> "sp"     if the sharded pipeline (XLA relaxation,
+                               halo="auto" router, parallel.model) is
+                               projected faster than one device running
+                               the engine it would pick per level (the
+                               CUDA kernel on a GPU),
+                      "single" otherwise.
     """
-    from tpuflow.parallel.model import plan_level
-    from tpuflow.solver.bucketed import bucket_dims
+    from tpuflow.parallel.model import (
+        estimate_level_t1_kernel, plan_level, schedule_levels,
+    )
+    from tpuflow.solver.bucketed import relax_kernel_plan
 
     if batched:
         return "dp"
     n_y = dict(zip(mesh.axis_names, mesh.devices.shape)).get("y", 1)
+    if n_y <= 1:
+        return "single"
     h, w = shape
-    specs = level_schedule(w, h, cfg.warp_levels_count, cfg.warp_scale_factor)
-    hb, wb = bucket_dims(specs[-1].width, specs[-1].height)
-    shardable = n_y > 1 and plan_level(hb, wb, cfg, n_y)[0] != "replicated"
-    return "sp" if shardable else "single"
+    levels = schedule_levels(w, h, cfg)
+    one_card = sum(
+        estimate_level_t1_kernel(hb, wb, cfg)
+        if relax_kernel_plan((hb, wb), cfg) is not None else t1
+        for hb, wb, t1 in levels)
+    sharded = sum(plan_level(hb, wb, cfg, n_y, t1=t1)[2]
+                  for hb, wb, t1 in levels)
+    return "sp" if sharded < one_card else "single"
 
 
 def compute_flow(
@@ -105,6 +107,7 @@ def compute_flow(
     fused: bool = False,
     engine: Optional[str] = None,
     mesh=None,
+    relax: str = "auto",
 ) -> FlowResult:
     """Compute dense 2D optical flow from frame_0 to frame_1.
 
@@ -127,9 +130,12 @@ def compute_flow(
     pyramid, any constancy) or "levels" (one program per level shape;
     used for per-level tracing).
 
-    fused=True: the ENTIRE coarse-to-fine solve as one XLA program (one
-    dispatch per pair). Measured equal to per-level at steady state on TPU
-    v5e but ~10x slower to compile, so off by default.
+    fused=True: the per-shape engine's ENTIRE coarse-to-fine solve as one
+    XLA program (one program per level shape, unrolled; slow to compile).
+
+    relax: the relaxation engine of the bucketed engine — "auto" (the CUDA
+    kernel on a GPU where it is faster, else XLA), "xla" or "cuda"
+    (solver.bucketed.relax_kernel_plan).
     """
     cfg = cfg or FlowConfig()
     f0 = jnp.asarray(frame_0, dtype=jnp.float32)
@@ -176,14 +182,15 @@ def compute_flow(
     if resolved == "bucketed":
         from tpuflow.solver.bucketed import warmup_bucketed
 
-        warmup_bucketed((orig_h, orig_w), cfg)
+        warmup_bucketed((orig_h, orig_w), cfg, relax=relax)
     else:
         warmup((orig_h, orig_w), cfg)
 
     t0 = time.perf_counter()
     traces: List[LevelTrace] = []
     u, v = compute_flow_async(
-        f0, f1, cfg, engine=engine, _traces=traces if collect_trace else None
+        f0, f1, cfg, engine=engine, _traces=traces if collect_trace else None,
+        relax=relax,
     )
     u_host, v_host = np.asarray(u), np.asarray(v)
     seconds = time.perf_counter() - t0
@@ -225,15 +232,15 @@ def compute_flow_async(
     *,
     engine: Optional[str] = None,
     _traces: Optional[List[LevelTrace]] = None,
+    relax: str = "auto",
 ) -> Tuple[jax.Array, jax.Array]:
     """Like compute_flow but returns DEVICE arrays without a host fence.
 
     The streaming building block: submit many frame pairs back-to-back and
-    fence once — on networked dispatch paths each host materialization
-    costs a ~50+ ms round trip, so batch pipelines should stay on device.
+    fence once, so the device never waits for the host between pairs.
 
     engine: "bucketed" (default) or "levels" (per-shape programs, used
-    for per-level tracing).
+    for per-level tracing). relax: as in compute_flow.
     """
     cfg = cfg or FlowConfig()
     if engine is None:
@@ -248,17 +255,18 @@ def compute_flow_async(
             warmup_bucketed,
         )
 
-        warmup_bucketed((orig_h, orig_w), cfg)
+        warmup_bucketed((orig_h, orig_w), cfg, relax=relax)
         if _traces is not None:
             # Group-level tracing (one record per bucket group of levels;
             # the per-level engine gives finer granularity on CPU).
             gt = []
-            u, v = compute_flow_bucketed_async(f0, f1, cfg, group_traces=gt)
+            u, v = compute_flow_bucketed_async(f0, f1, cfg, group_traces=gt,
+                                               relax=relax)
             for (hb, wb), n, secs in gt:
                 _traces.append(LevelTrace(level=-n, width=wb, height=hb,
                                           seconds=secs))
             return u, v
-        return compute_flow_bucketed_async(f0, f1, cfg)
+        return compute_flow_bucketed_async(f0, f1, cfg, relax=relax)
 
     warmup((orig_h, orig_w), cfg)
 
@@ -277,7 +285,7 @@ def compute_flow_async(
         step = compiled_level_step(spec, cfg, u.shape)
         u, v = step(f0s, f1s, u, v)
         if _traces is not None:
-            np.asarray(u)  # host fence (see FlowResult docstring)
+            jax.block_until_ready(u)
             _traces.append(
                 LevelTrace(spec.level, spec.width, spec.height,
                            time.perf_counter() - lt0)
@@ -318,10 +326,10 @@ _WARMED: set = set()
 def warmup(orig_shape: Tuple[int, int], cfg: FlowConfig, max_workers: int = 16) -> float:
     """Concurrently warm every level program for a workload shape.
 
-    Warms by CALLING each jitted program with zero arrays and fencing with
-    device_get: ``.lower().compile()`` does NOT populate the jit dispatch
-    cache, so an AOT-only warmup still pays the full compile inside the
-    first (timed) real call on remote-compile backends. XLA compilation of
+    Warms by CALLING each jitted program with zero arrays:
+    ``.lower().compile()`` does NOT populate the jit dispatch cache, so an
+    AOT-only warmup still pays the full compile inside the first (timed)
+    real call. XLA compilation of
     the ~46 per-level programs is embarrassingly parallel, so a thread pool
     cuts cold-start from minutes to tens of seconds. Returns wall seconds
     spent. Idempotent per (shape, cfg) within the process.

@@ -5,7 +5,7 @@ One warp level of the reference driver loop
 jitted XLA program per level shape:
 
   * frames are resampled from the FULL-RES smoothed frames (never cascaded,
-    reference :283-304) — two MXU matmuls;
+    reference :283-304) — two matmuls;
   * the flow is prolongated from the previous level's size (:315-340);
   * backward registration (:343-363);
   * relaxation with du,dv zero-init (:229-232): `lax.scan` over outer
@@ -51,10 +51,8 @@ def relax(
     """Outer x inner lagged-nonlinearity relaxation; returns (du, dv).
 
     Always the XLA scan path: the per-shape engine exists for per-level
-    tracing and CPU test parity; the production fast path is the bucketed
-    engine's Pallas kernel (tpuflow.ops.pallas.relax_bucket). A per-shape
-    Pallas variant was measured no faster in round 1 and deleted (see
-    tpuflow.ops.pallas docstring for its surviving lessons).
+    tracing and CPU test parity; production runs the bucketed engine
+    (tpuflow.solver.bucketed).
     """
     h, w = u.shape
     # XLA scan path on mirror-padded fields: every stencil shift is a pure
@@ -101,10 +99,8 @@ def level_step(
     v_prev: jax.Array,
     spec: LevelSpec,
     cfg: FlowConfig,
-    use_pallas: bool = None,  # accepted for API compat; per-shape relax is XLA-only
 ) -> Tuple[jax.Array, jax.Array]:
     """One coarse-to-fine level; returns the refined (u, v) at level size."""
-    del use_pallas
     cw, ch, hx, hy = spec.width, spec.height, spec.hx, spec.hy
 
     f0_l = resample(frame_0_full, cw, ch)
