@@ -234,11 +234,11 @@ def test_bucketed_grad_log_matches_per_shape(constancy):
     assert epe < 1e-3, f"{constancy}: bucketed vs per-shape EPE {epe}"
 
 
-@pytest.mark.parametrize("scale,path", [(3.0, "class-0"), (12.0, "class-1"),
-                                        (30.0, "class-2")])
+@pytest.mark.parametrize("scale,path", [(3.0, "small"), (12.0, "wide"),
+                                        (30.0, "violent")])
 def test_warp_dyn_paths_match_oracle(scale, path):
-    # Small and large displacements (beyond WARP_MAX_DISP) both go through
-    # the gather; both must match the oracle on the valid region.
+    # Small and large displacements both go through the one exact gather;
+    # every one must match the oracle on the valid region.
     import jax.numpy as jnp
 
     import tpuflow.oracle as oracle
@@ -263,104 +263,33 @@ def test_warp_dyn_paths_match_oracle(scale, path):
     np.testing.assert_allclose(got[:ch, :cw], want, atol=2e-4, err_msg=path)
 
 
-def test_warp_disp_env_widens_fast_path(monkeypatch):
-    """TPUFLOW_WARP_DISP moves the displacement-class boundary of the warp
-    telemetry at trace time; the warp itself stays exact vs the oracle."""
-    import jax.numpy as jnp
-
-    import tpuflow.oracle as oracle
-    from tpuflow.solver.bucketed import warp_dyn, warp_small_pred
-
-    rng = np.random.default_rng(5)
-    HB, WB, cw, ch = 64, 128, 100, 50
-    f0 = np.zeros((HB, WB), np.float32)
-    f1 = np.zeros((HB, WB), np.float32)
-    f0[:ch, :cw] = rng.random((ch, cw), dtype=np.float32) * 255
-    f1[:ch, :cw] = rng.random((ch, cw), dtype=np.float32) * 255
-    # Displacements in (-6, 6): outside the default window, inside D=8.
-    u = ((rng.random((HB, WB), dtype=np.float32) - 0.5) * 12).astype(np.float32)
-    v = ((rng.random((HB, WB), dtype=np.float32) - 0.5) * 12).astype(np.float32)
-    args = (jnp.asarray(u), jnp.asarray(v), np.float32(1), np.float32(1),
-            np.float32(cw - 1), np.float32(ch - 1))
-    assert not bool(warp_small_pred(*args))          # default D=4: class 1
-    monkeypatch.setenv("TPUFLOW_WARP_DISP", "8")
-    assert bool(warp_small_pred(*args))              # widened: class 0
-    got = np.asarray(
-        warp_dyn(
-            jnp.asarray(f0), jnp.asarray(f1), jnp.asarray(u), jnp.asarray(v),
-            np.int32(cw), np.int32(ch), np.float32(1), np.float32(1),
-            np.float32(cw - 1), np.float32(ch - 1),
-        )
-    )
-    want = oracle.warp(f0[:ch, :cw], f1[:ch, :cw], u[:ch, :cw], v[:ch, :cw], 1.0, 1.0)
-    np.testing.assert_allclose(got[:ch, :cw], want, atol=2e-4)
-
-
-def test_level_step_warp_tier_telemetry():
-    """return_tier: the level step reports the warp's displacement class
-    (0 within +-D / 1 within +-2D / 2 beyond)."""
-    import jax.numpy as jnp
-
+@pytest.mark.parametrize("dx", [0.8, 6.5])
+def test_pipeline_recovers_gentle_and_violent_motion(dx):
+    """The production pipeline tracks a rigid shift of two blobs, from
+    sub-pixel (0.8 px) to violent (6.5 px: beyond +-4 pixels at the fine
+    levels), at both blob centres."""
     from tpuflow.config import FlowConfig
-    from tpuflow.solver.bucketed import LevelScalars, bucketed_level_step
-
-    cfg = FlowConfig(outer_iterations_count=1, inner_iterations_count=1,
-                     median_radius=3)
-    HB, WB = 64, 128
-    cw, ch = 100, 50
-    sc = LevelScalars.make(cw, ch, 1.0, 1.0, 35.0, cw, ch, cw, ch)
-    rng = np.random.default_rng(0)
-    f = jnp.asarray(rng.random((HB, WB), dtype=np.float32) * 255)
-    for disp, want_tier in ((0.5, 0), (6.0, 1), (20.0, 2)):
-        u_prev = jnp.full((HB, WB), np.float32(disp))
-        out = bucketed_level_step(
-            f, f, u_prev, jnp.zeros_like(u_prev), sc.tree(), (HB, WB),
-            (HB, WB), cfg, relax="xla", return_tier=True,
-        )
-        assert len(out) == 3
-        assert int(out[2]) == want_tier, (disp, int(out[2]))
-
-
-def test_warp_report_pipeline():
-    """compute_flow_warp_report: production-observable per-level warp
-    telemetry. Gentle motion -> every level tier 0; violent motion (a
-    ~6.5 px shift) -> the fine levels report the wide tier (and none of
-    this perturbs the two-output production pipeline)."""
-    from tpuflow.config import FlowConfig
-    from tpuflow.solver.bucketed import (
-        compute_flow_bucketed_async,
-        compute_flow_warp_report,
-    )
+    from tpuflow.solver.bucketed import compute_flow_bucketed_async
 
     h, w = 72, 96
     ys, xs = np.mgrid[0:h, 0:w].astype(np.float32)
 
-    def blobs(dx):
-        return (200.0 * np.exp(-((ys - 36) ** 2 + (xs - 48 - dx) ** 2) / 60.0)
-                + 150.0 * np.exp(-((ys - 20) ** 2 + (xs - 20 - dx) ** 2) / 40.0)
+    def blobs(shift):
+        return (200.0 * np.exp(-((ys - 36) ** 2 + (xs - 48 - shift) ** 2) / 60.0)
+                + 150.0 * np.exp(-((ys - 20) ** 2 + (xs - 20 - shift) ** 2) / 40.0)
                 ).astype(np.float32)
 
-    # A schedule that actually tracks the motion (alpha=10, deep
-    # pyramid): dx=6.5 recovers ~6.5 px of flow, whose finest levels
-    # exceed the +-4 fast window and must REPORT the wide tier.
+    # A schedule that tracks large motion: alpha=10, a deep pyramid.
     cfg = FlowConfig(warp_levels_count=8, warp_scale_factor=0.6,
                      outer_iterations_count=30, inner_iterations_count=5,
                      equation_alpha=10.0, median_radius=3,
                      gaussian_sigma=1.5)
-    u, v, rep = compute_flow_warp_report(blobs(0), blobs(0.8), cfg)
-    assert rep["tiers"].shape[0] == len(rep["levels"])
-    assert rep["n_wide"] == 0 and rep["n_gather"] == 0
-    assert (rep["tiers"] == 0).all()
-
-    u2, v2, rep2 = compute_flow_warp_report(blobs(0), blobs(6.5), cfg)
-    assert rep2["n_wide"] >= 1, rep2
-    # Telemetry is a SEPARATE compiled program (extra outputs can change
-    # fusion choices), so bound mean EPE per the repo's cross-program
-    # rule rather than asserting bitwise equality.
-    up, vp = compute_flow_bucketed_async(blobs(0), blobs(6.5), cfg)
-    epe = np.hypot(np.asarray(u2) - np.asarray(up),
-                   np.asarray(v2) - np.asarray(vp)).mean()
-    assert epe <= 1e-5, epe
+    u, v = compute_flow_bucketed_async(blobs(0), blobs(dx), cfg)
+    u, v = np.asarray(u), np.asarray(v)
+    assert np.isfinite(u).all() and np.isfinite(v).all()
+    for y, x in ((36, 48), (20, 20)):
+        assert abs(u[y, x] - dx) < 0.1 * dx, (y, x, u[y, x])
+        assert abs(v[y, x]) < 0.05, (y, x, v[y, x])
 
 
 def test_level_step_blocked_resample_matches_dense(monkeypatch):

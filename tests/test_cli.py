@@ -57,22 +57,6 @@ def test_settings_mode(tmp_path):
     assert (out / "res.pgm").read_bytes().startswith(b"P6 \n32 24 \n255\n")
 
 
-def test_warp_report_flag(tmp_path, capsys):
-    """--warp-report prints per-level warp displacement telemetry
-    alongside the normal outputs (gentle motion -> every level within
-    +-D)."""
-    inp = tmp_path / "in"
-    out = tmp_path / "out"
-    inp.mkdir()
-    make_frames(str(inp))
-    settings = tmp_path / "settings.xml"
-    settings.write_text(SETTINGS_TMPL.format(inp=inp, out=out))
-
-    assert main([str(settings), "--warp-report"]) == 0
-    text = capsys.readouterr().out
-    assert "warp-report: every level within +-D" in text
-
-
 def test_positional_mode_with_counter(tmp_path):
     make_frames(str(tmp_path))
     out = tmp_path / "out"

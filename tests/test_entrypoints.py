@@ -7,6 +7,7 @@ import shutil
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -48,6 +49,33 @@ def test_chip_smoke_cards_option():
         chip_smoke.main(["--cards", "2"])
     assert chip_smoke.main([]) == 3          # no GPU: refused, no result
     assert chip_smoke.main(["--cards", "4"]) == 3
+
+
+@pytest.mark.parametrize("seed", [0, 1, 7])
+def test_chip_smoke_ulp_jitter(seed):
+    """The kernel gate's float-noise ensemble: every pixel moves by -1, 0
+    or +1 ulp, the same way for the same seed."""
+    sys.path.insert(0, REPO)
+    import chip_smoke
+
+    a = np.random.default_rng(3).standard_normal((16, 32)).astype(np.float32)
+    j = np.asarray(chip_smoke.ulp_jitter(a, seed))
+    ulps = j.view(np.int32).astype(np.int64) - a.view(np.int32)
+    assert set(np.unique(ulps)) == {-1, 0, 1}
+    np.testing.assert_array_equal(j, np.asarray(chip_smoke.ulp_jitter(a, seed)))
+    assert not np.array_equal(j, np.asarray(chip_smoke.ulp_jitter(a, seed + 1)))
+
+
+def test_chip_smoke_ring_hop_runs_on_a_mesh():
+    """The router phase's link probe runs a loop of ppermute ring steps
+    inside one program over the 'y' axis and returns seconds per step."""
+    sys.path.insert(0, REPO)
+    import chip_smoke
+
+    from tpuflow.parallel import make_mesh
+
+    s = chip_smoke.ring_hop_seconds(make_mesh((1, 8)), 2, hops=(1, 3), n=1)
+    assert np.isfinite(s)
 
 
 def test_device_record_and_summary():

@@ -119,9 +119,10 @@ def test_front_door_routing_decisions():
     mesh = make_mesh((1, 8))
     # Tiny frames: every level replicates -> one chip.
     assert plan_parallel((64, 72), False, cfg, mesh) == "single"
-    # With the measured 4-card constants the rub-size pair stays on one
-    # device; 4K frames shard.
-    assert plan_parallel((388, 584), False, cfg, mesh) == "single"
+    # With the measured 4-card constants, against one device running the
+    # XLA engine: sharding leaves the engine's per-level floor in place,
+    # so only frames whose fine levels carry enough per-pixel work shard.
+    assert plan_parallel((1080, 1920), False, cfg, mesh) == "sp"
     assert plan_parallel((2160, 3840), False, cfg, mesh) == "sp"
     # Batches: dp regardless of size (pairs independent, eff ~1.0).
     assert plan_parallel((64, 72), True, cfg, mesh) == "dp"
@@ -173,10 +174,10 @@ def test_front_door_single_large_routes_sp(monkeypatch):
     """A single pair whose levels the router prices high enough to shard
     executes through the front door's sp path and matches the meshless
     solve. (At this test size the measured one-card level times would keep
-    it on one device, so the level cost is raised here.)"""
+    it on one device, so the per-pixel level cost is raised here.)"""
     import tpuflow.parallel.model as model
 
-    monkeypatch.setattr(model, "LEVEL_FLOOR_S", 1.0)
+    monkeypatch.setattr(model, "LEVEL_PER_PIXEL_S", 1e-5)
     h, w = 194, 292
     f0 = blob(h, w, 90, 140, sigma=10.0) + blob(h, w, 40, 60, sigma=6.0)
     f1 = blob(h, w, 91, 141.5, sigma=10.0) + blob(h, w, 41, 61.5, sigma=6.0)

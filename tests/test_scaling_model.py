@@ -4,6 +4,7 @@ its documented message counts, and routes with no kernel path."""
 
 import pytest
 
+import tpuflow.parallel.model as model
 from tpuflow.config import FlowConfig
 from tpuflow.parallel.model import (
     LinkParams,
@@ -77,6 +78,18 @@ def test_plan_level_follows_compute_time():
     cfg = FlowConfig()
     assert plan_level(1088, 2048, cfg, 4, t1=1e-7)[0] == "replicated"
     assert plan_level(1088, 2048, cfg, 4, t1=1.0)[0] == "explicit"
+
+
+@pytest.mark.parametrize("n_y", [2, 4, 8])
+def test_sharding_keeps_the_xla_floor(n_y):
+    """Sharding rows splits only the per-pixel part of a level's XLA time:
+    a level that costs no more than the engine's per-level floor gains
+    nothing from it and replicates."""
+    cfg = FlowConfig()
+    floor = model.LEVEL_FLOOR_S
+    t, path = level_sharded_time(floor, 1088, 2048, cfg, n_y)
+    assert path == "explicit" and t > floor
+    assert plan_level(1088, 2048, cfg, n_y, t1=floor)[0] == "replicated"
 
 
 def test_efficiency_definition():

@@ -25,4 +25,3 @@ __version__ = "0.1.0"
 
 from tpuflow.config import FlowConfig, DataConstancy  # noqa: F401
 from tpuflow.solver.flow2d import compute_flow  # noqa: F401
-from tpuflow.solver.bucketed import compute_flow_warp_report  # noqa: F401

@@ -109,12 +109,6 @@ def main(argv=None) -> int:
                              "(ONE compiled program + ONE stacked download "
                              "per N pairs; amortizes per-call dispatch and "
                              "host synchronization)")
-    parser.add_argument("--warp-report", action="store_true",
-                        help="also solve with per-level warp displacement "
-                             "telemetry and print which levels warped "
-                             "beyond +-D or +-2D level pixels "
-                             "(violent-motion observability; a separate "
-                             "compiled program, same math)")
     parser.add_argument("--quiet", action="store_true")
     parser.add_argument("--help", action="help")
     flags, positional = parser.parse_known_args(argv)
@@ -161,21 +155,6 @@ def main(argv=None) -> int:
     if not flags.quiet:
         print(f"computed in {time.perf_counter() - t0:.3f}s "
               f"({result.megapixels_per_second:.2f} Mpix/s steady-state)")
-
-    if flags.warp_report:
-        from tpuflow.solver.bucketed import compute_flow_warp_report
-
-        _, _, rep = compute_flow_warp_report(frame_0, frame_1, cfg)
-        slow = [
-            (lvl, int(t))
-            for lvl, t in zip(rep["levels"], rep["tiers"]) if t > 0
-        ]
-        if slow:
-            print(f"warp-report: {rep['n_wide']} level(s) beyond +-D, "
-                  f"{rep['n_gather']} beyond +-2D: "
-                  + ", ".join(f"{w_}x{h_}@tier{t}" for (w_, h_), t in slow))
-        else:
-            print("warp-report: every level within +-D")
 
     suffix = f"-{io.width}-{io.height}.raw"
     out = io.output_path

@@ -6,8 +6,13 @@ halo="auto") and the front door's route choice (solver.flow2d.plan_parallel)
 price each pyramid level on ``n_y`` row shards as
 
     t_level(n) = t_compute + t_comm
-    t_compute  = t1 * (s_rows + 2*halo) / hb        (redundant-halo split)
+    t_compute  = t_floor + (t1 - t_floor) * (s_rows + 2*halo) / hb
     t_comm     = msgs * (latency + bytes / bandwidth)
+
+where t_floor is the XLA engine's per-level cost that does not shrink with
+the rows a shard holds (the launches of its ~240 loop iterations: one
+64x128 level costs 9.4 ms, one 1088x2048 level 23 ms), and the rest is
+split with a redundant halo.
 
 with the exact per-level message and byte counts of the explicit halo path
 (parallel/halo.py): (n_const + 2) fields exchanged once per level, plus
@@ -16,17 +21,16 @@ and down the ring (k = k-outer fusion factor: one exchange per k fused
 outer iterations; valid-region numerics are k-invariant). Levels whose
 sharded price is not below ``t1`` stay replicated.
 
-The constants are measurements on NVIDIA H100 80GB HBM3 (SXM) cards at a
-700 W power limit (PERF.md names the runs): ``LinkParams`` is a
-least-squares fit of one jitted ``ppermute`` ring step over four cards
-joined by NVLink, 4 KiB to 64 MiB per device, each call timed to
-``block_until_ready`` (so its latency includes the dispatch of a
-stand-alone call and is an upper bound for a collective inside a larger
-program); ``estimate_level_t1`` is fitted to one-card relaxation times of
-one level of the XLA engine (the engine the sharded pipeline runs) at the
-64x128, 448x640 and 1088x2048 buckets, and ``estimate_level_t1_kernel``
-to the same levels on the CUDA kernel (the engine one card runs).
-``chip_smoke.py --cards 4`` re-measures them.
+The constants are measurements on four NVIDIA H100 80GB HBM3 (SXM) cards
+joined by NVLink, at a 400 W power limit, all from one run of
+``chip_smoke.py``'s four-card router phase (PERF.md names it):
+``LinkParams`` is a least-squares fit of one ``ppermute`` ring step inside
+a jitted loop of ring steps (the loop's launch cancels out), 4 KiB to
+64 MiB per card; ``estimate_level_t1`` is fitted to one-card relaxation
+times of one level of the XLA engine (the engine the sharded pipeline
+runs) at the 64x128, 448x640 and 1088x2048 buckets, and
+``estimate_level_t1_kernel`` to the same levels on the CUDA kernel (the
+engine one card runs).
 """
 
 from __future__ import annotations
@@ -42,18 +46,18 @@ class LinkParams:
     """Cost of one ``ppermute`` of B bytes per device between the cards of
     a 4-card NVLink mesh: latency_s + B / bandwidth_bytes_s."""
 
-    latency_s: float = 678e-6          # 4x H100 80GB HBM3, NVLink, 700 W
-    bandwidth_bytes_s: float = 179e9   # 4x H100 80GB HBM3, NVLink, 700 W
+    latency_s: float = 25.7e-6         # 4x H100 80GB HBM3, NVLink, 400 W
+    bandwidth_bytes_s: float = 148e9   # 4x H100 80GB HBM3, NVLink, 400 W
 
 
 # One-card per-level relaxation time at the default 40 x (1 + 5) schedule,
-# t1 = FLOOR + PER_PIXEL * hb * wb, on one H100 80GB HBM3 (700 W):
+# t1 = FLOOR + PER_PIXEL * hb * wb, on one H100 80GB HBM3 (400 W):
 # the XLA scan engine ...
-LEVEL_FLOOR_S = 7.03e-3
-LEVEL_PER_PIXEL_S = 7.03e-9
+LEVEL_FLOOR_S = 9.41e-3
+LEVEL_PER_PIXEL_S = 6.06e-9
 # ... and the CUDA kernel (tpuflow/ops/cuda/relax.cu).
-KERNEL_LEVEL_FLOOR_S = 1.70e-3
-KERNEL_LEVEL_PER_PIXEL_S = 3.95e-9
+KERNEL_LEVEL_FLOOR_S = 1.82e-3
+KERNEL_LEVEL_PER_PIXEL_S = 4.02e-9
 
 
 def _n_const_fields(cfg: FlowConfig) -> int:
@@ -84,23 +88,27 @@ def level_sharded_time(t1_s: float, hb: int, wb: int, cfg: FlowConfig,
     if not halo_applicable(hb, n_y, cfg, k_outer=k):
         return t1_s, "replicated"
     halo = _halo_rows(cfg, k)
-    compute = t1_s * (hb // n_y + 2 * halo) / hb
+    floor = min(t1_s, LEVEL_FLOOR_S * _passes(cfg) / 240.0)
+    compute = floor + (t1_s - floor) * (hb // n_y + 2 * halo) / hb
     return compute + level_comm_cost(hb, wb, cfg, n_y, link, k), "explicit"
+
+
+def _passes(cfg: FlowConfig) -> int:
+    return cfg.outer_iterations_count * (1 + cfg.inner_iterations_count)
 
 
 def estimate_level_t1(hb: int, wb: int, cfg: FlowConfig) -> float:
     """One-card seconds of one level's XLA relaxation at bucket (hb, wb),
     scaled linearly in the number of stencil passes from the default
     40 x (1 + 5)."""
-    passes = cfg.outer_iterations_count * (1 + cfg.inner_iterations_count)
-    return (LEVEL_FLOOR_S + LEVEL_PER_PIXEL_S * hb * wb) * (passes / 240.0)
+    return ((LEVEL_FLOOR_S + LEVEL_PER_PIXEL_S * hb * wb)
+            * (_passes(cfg) / 240.0))
 
 
 def estimate_level_t1_kernel(hb: int, wb: int, cfg: FlowConfig) -> float:
     """estimate_level_t1 for the CUDA relaxation kernel."""
-    passes = cfg.outer_iterations_count * (1 + cfg.inner_iterations_count)
     return ((KERNEL_LEVEL_FLOOR_S + KERNEL_LEVEL_PER_PIXEL_S * hb * wb)
-            * (passes / 240.0))
+            * (_passes(cfg) / 240.0))
 
 
 _PLAN_KS = (1, 2, 4, 5, 8, 10, 20, 40)

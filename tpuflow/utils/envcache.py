@@ -1,7 +1,7 @@
 """Trace-env-keyed lru_cache for compiled-program builders.
 
 Several TPUFLOW_* env flags are read at TRACE time (resample and smooth
-forms, warp telemetry window, halo fusion): a builder cached
+forms, halo fusion): a builder cached
 with a plain ``functools.lru_cache`` would keep returning the program
 traced under the OLD flag values after a flip. Every compiled-program
 builder in the package therefore caches through ``env_cached``, which
@@ -16,21 +16,12 @@ import os
 # Env flags the traced programs bake in.
 TRACE_ENV_FLAGS = (
     "TPUFLOW_BANDED_RESAMPLE", "TPUFLOW_BANDED_COLS",
-    "TPUFLOW_SMOOTH", "TPUFLOW_WARP_DISP", "TPUFLOW_HALO_K",
+    "TPUFLOW_SMOOTH", "TPUFLOW_HALO_K",
 )
 
 
 def trace_env_fingerprint() -> tuple:
     return tuple(os.environ.get(k, "") for k in TRACE_ENV_FLAGS)
-
-
-def warp_max_disp() -> int:
-    """Trace-time displacement-class boundary D (default 4) of the warp
-    telemetry (solver.bucketed.compute_flow_warp_report): class 0 = every
-    integer displacement of a level within +-D level pixels, 1 = within
-    +-2D, 2 = beyond. Part of TRACE_ENV_FLAGS, so program caches key on
-    it."""
-    return int(os.environ.get("TPUFLOW_WARP_DISP", "4"))
 
 
 def halo_k_outer() -> int:
